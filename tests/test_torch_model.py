@@ -1,0 +1,106 @@
+"""The port's ZSGNet against the JAX ZSGNet on the same weights: a random
+JAX init (biases and BatchNorm statistics perturbed) goes through
+``state_dict_from_jax`` into the port, and both forward the same seeded
+batch in float32 on the CPU (atol 5e-4, rtol 2e-3, the budget of
+tests/test_convert_full.py). The JAX package's own converter maps the
+port's ``state_dict`` back onto the JAX params exactly."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import traverse_util
+
+from _torch_port import cfg_pair, jax_variables, port_model, random_batch
+from zsgnet_tpu.convert.torch_import import convert_zsgnet_checkpoint
+from zsgnet_tpu.models.bilstm import BiLSTMEncoder as JBiLSTM
+from zsgnet_tpu.models.zsgnet import ZSGNet as JZSGNet
+from zsgnet_tpu_torch.convert import ungroup_head_channels
+from zsgnet_tpu_torch.models.bilstm import encode_query, make_encoder
+from zsgnet_tpu_torch.models.zsgnet import FOCAL_PRIOR_BIAS, ZSGNet, init_weights
+
+torch.set_num_threads(1)
+
+VOCAB = 30
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg, tcfg = cfg_pair()
+    variables = jax_variables(jcfg, VOCAB, seed=0)
+    return jcfg, tcfg, variables, port_model(tcfg, variables, VOCAB)
+
+
+def test_forward_matches_jax(setup):
+    jcfg, tcfg, variables, model = setup
+    batch = random_batch(np.random.default_rng(7), 3, tcfg, VOCAB)
+    batch["qlens"][:] = (1, 5, tcfg.max_qlen)
+    want = JZSGNet(cfg=jcfg, vocab_size=VOCAB).apply(
+        variables, {k: jnp.asarray(batch[k]) for k in ("img", "qvec", "qlens")}, train=False
+    )
+    with torch.no_grad():
+        got = model(*(torch.from_numpy(batch[k]) for k in ("img", "qvec", "qlens")))
+    assert got["att_out"].shape == (3, 774) and got["bbx_out"].shape == (3, 774, 4)
+    assert got["feat_sizes"] == tuple(tuple(s) for s in want["feat_sizes"])
+    np.testing.assert_allclose(got["att_out"].numpy(), np.asarray(want["att_out"]),
+                               atol=5e-4, rtol=2e-3)
+    np.testing.assert_allclose(got["bbx_out"].numpy(), np.asarray(want["bbx_out"]),
+                               atol=5e-4, rtol=2e-3)
+
+
+def test_jax_converter_maps_port_weights_back(setup):
+    _, tcfg, variables, model = setup
+    back = convert_zsgnet_checkpoint(
+        model.state_dict(),
+        head_conv_prefixes=("head.conv0", "head.conv1", "head.conv2", "head.conv3", "head.out"),
+        num_anchors=tcfg.num_anchors,
+    )
+    for coll in ("params", "batch_stats"):
+        want = traverse_util.flatten_dict(variables[coll])
+        got = traverse_util.flatten_dict(back[coll])
+        assert set(got) == set(want), coll
+        for path, x in want.items():
+            np.testing.assert_allclose(got[path], x, rtol=1e-6, atol=1e-7, err_msg=str(path))
+
+
+def test_bilstm_matches_jax():
+    rng = np.random.default_rng(8)
+    emb, lstm = make_encoder(VOCAB, 8, 6)
+    jenc = JBiLSTM(vocab_size=VOCAB, emb_dim=8, hidden=6)
+    qvec = rng.integers(1, VOCAB, size=(5, 7)).astype(np.int32)
+    qlens = np.array([1, 7, 3, 4, 2], np.int32)
+    params = jenc.init(jax.random.PRNGKey(1), qvec, qlens)["params"]
+    params = jax.tree.map(
+        lambda x: np.asarray(x) + rng.normal(0, 0.1, np.shape(x)).astype(np.float32), params)
+    with torch.no_grad():
+        emb.weight.copy_(torch.from_numpy(params["embed"]["embedding"]))
+        for d, sfx in (("fwd", "l0"), ("bwd", "l0_reverse")):
+            getattr(lstm, f"weight_ih_{sfx}").copy_(torch.from_numpy(params[d]["w_ih"].T))
+            getattr(lstm, f"weight_hh_{sfx}").copy_(torch.from_numpy(params[d]["w_hh"].T))
+            getattr(lstm, f"bias_ih_{sfx}").copy_(torch.from_numpy(params[d]["bias"]))
+            getattr(lstm, f"bias_hh_{sfx}").zero_()
+        got = encode_query(emb, lstm, torch.from_numpy(qvec), torch.from_numpy(qlens))
+    want = jenc.apply({"params": params}, qvec, qlens)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def test_head_channel_ungroup_inverts_jax_regroup():
+    from zsgnet_tpu.convert.torch_import import regroup_head_kernel
+
+    rng = np.random.default_rng(9)
+    k = rng.normal(size=(3, 3, 4, 45)).astype(np.float32)
+    b = rng.normal(size=(45,)).astype(np.float32)
+    k2, b2 = regroup_head_kernel(*ungroup_head_channels(k, b, 9), 9)
+    np.testing.assert_array_equal(k2, k)
+    np.testing.assert_array_equal(b2, b)
+
+
+def test_init_weights_is_seeded_and_sets_the_focal_prior():
+    _, tcfg = cfg_pair()
+    a, b, c = (init_weights(ZSGNet(tcfg, VOCAB), seed=s) for s in (0, 0, 1))
+    sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    assert not torch.equal(sa["head.conv0.weight"], sc["head.conv0.weight"])
+    np.testing.assert_allclose(sa["head.out.bias"][0::5].numpy(), FOCAL_PRIOR_BIAS)
+    assert float(sa["head.out.bias"][1::5].abs().max()) == 0.0
