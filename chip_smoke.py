@@ -2,16 +2,19 @@
 
     python3 chip_smoke.py
 
-Builds the package's CUDA kernel from ``zsgnet_tpu_torch/csrc`` with nvcc,
-holds it against its plain PyTorch version, then drives the main path at
-the full width of the default retina model at 300² (ResNet-50 + FPN 256,
-head 256, embedding 300, BiLSTM 256, 9 anchors, bf16 convolutions) with
-seeded random weights: the evaluation step over the validation split of a
-synthetic dataset, and a ``Grounder`` answering 1 and then 16 requests.
-Every phase is fatal on failure. The next-to-last line of standard output
-is a JSON object describing each kernel; the last is
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
-prints no result.
+Builds the package's CUDA kernels from ``zsgnet_tpu_torch/csrc`` with
+nvcc, holds each against its plain PyTorch version, then drives the port's
+paths at the full width of the default retina model at 300² (ResNet-50 +
+FPN 256, head 256, embedding 300, BiLSTM 256, 9 anchors, bf16
+convolutions) with seeded random weights on a synthetic dataset:
+evaluation over the validation split, a ``Grounder`` answering 1 and then
+16 requests, and training through ``main_dist`` (one epoch of Adam steps,
+validation, checkpoints), then a reload, step timings and an overfit run.
+Each path is driven with the kernels' launch counts set to 0 just before
+it and read just after. Every phase is fatal on failure. The
+next-to-last line of standard output is a JSON object describing each
+kernel; the last is ``{"ok": true, "device": {...}}``. Without a CUDA
+device it exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import pandas as pd
@@ -29,11 +33,16 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12   # float32 outside the tensor cores
+H100_BF16_OPS_PER_S = 989e12  # bf16 tensor cores, dense
 # Float operations per (row, anchor) in csrc/fused_loss.cu's loop body,
 # counting each transcendental (exp, log1p, pow, log) as one: IoU 17,
 # labels 3, focal 30, targets 16, smooth-L1 and the sums 30.
 K1_OPS_PER_ELEMENT = 96
+# The same for K2's body: IoU 17, labels 3, focal gradient 36, targets 16,
+# four smooth-L1 gradients 20 and the products with g, pos/valid and w 14.
+K2_OPS_PER_ELEMENT = 106
 BATCH = 16
+N_TRAIN = 64  # 4 steps of BATCH per epoch
 SEED = 0
 
 
@@ -67,9 +76,15 @@ def device_kernels(fn, iters: int) -> list[tuple[str, float, int]]:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    # User annotations on the device timeline (Optimizer.step#Adam.step)
+    # span kernels that are counted on their own; they carry the name of
+    # their host-side range, which no kernel has.
+    events = prof.key_averages()
+    host_names = {e.key for e in events if e.device_type == DeviceType.CPU}
     rows = [
         (e.key, getattr(e, "self_device_time_total", 0.0) / 1e3 / iters, e.count // iters)
-        for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+        for e in events
+        if e.device_type == DeviceType.CUDA and e.key not in host_names
     ]
     return sorted(rows, key=lambda r: -r[1])
 
@@ -138,15 +153,78 @@ def check_fused_loss(anchors_cthw: np.ndarray) -> dict:
     }
 
 
+def check_fused_loss_backward(anchors_cthw: np.ndarray) -> dict:
+    """Phase 3b: K2 against its plain version on the card, the Function's
+    gradients against autograd of the plain forward, then timings."""
+    from zsgnet_tpu_torch.ops.cuda import fused_loss as fl
+
+    dev = torch.device("cuda")
+    att, bbx, gt, w = (torch.from_numpy(x).to(dev) for x in k1_inputs(
+        anchors_cthw, BATCH, np.random.default_rng(SEED + 1)))
+    anc = fl.pack_anchors(anchors_cthw, dev)
+    sums, best = fl._launch_fwd(att, bbx, *anc, gt, w, 0.5, 0.4, 0.25, 2.0)
+    n = sums[2].clamp(min=1.0)
+    grad = torch.stack([1.0 / n, 1.0 / n, torch.zeros_like(n)])  # d total / d sums, lamb_reg 1
+    got = fl.fused_match_loss_backward(att, bbx, *anc, gt, w, best, grad)
+    want = fl.fused_match_loss_backward_reference(att, bbx, *anc, gt, w, grad)
+    torch.cuda.synchronize()
+    err = max(float((g - x).abs().max()) for g, x in zip(got, want))
+    log(f"K2 kernel vs plain: max abs error {err:.3e} (datt max {float(want[0].abs().max()):.4f}, "
+        f"dbbx max {float(want[1].abs().max()):.4f})")
+    if err > 1e-6:
+        raise AssertionError(f"K2 differs from its plain version by {err} (atol 1e-6)")
+
+    a1, b1 = att.clone().requires_grad_(), bbx.clone().requires_grad_()
+    fl.zsg_loss_fused(a1, b1, anc, gt, sample_weight=w)["total"].backward()
+    a2, b2 = att.clone().requires_grad_(), bbx.clone().requires_grad_()
+    ref = fl.fused_match_loss_reference(a2, b2, *anc, gt, w)
+    ((ref[0] + ref[1]) / ref[2].clamp(min=1.0)).backward()
+    fn_err = max(float((a1.grad - a2.grad).abs().max()), float((b1.grad - b2.grad).abs().max()))
+    log(f"K1+K2 Function gradients vs autograd of the plain forward: max abs error {fn_err:.3e}")
+    if fn_err > 1e-6:
+        raise AssertionError(f"the Function's gradients differ from autograd by {fn_err} (atol 1e-6)")
+
+    b, a = att.shape
+    call = lambda: fl.fused_match_loss_backward(att, bbx, *anc, gt, w, best, grad)  # noqa: E731
+    ms = cuda_ms(call)
+    plain_ms = cuda_ms(lambda: fl.fused_match_loss_backward_reference(att, bbx, *anc, gt, w, grad))
+    kernels = device_kernels(call, 20)
+    device_ms = sum(t for _, t, _ in kernels)
+    n_bytes = 2 * b * a * (4 + 16) + a * 32 + b * (16 + 4 + 4) + 3 * 4
+    bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
+    ops_ms = b * a * K2_OPS_PER_ELEMENT / H100_F32_OPS_PER_S * 1e3
+    log(f"K2 B={b} A={a}: {ms:.4f} ms per call back to back, device {device_ms:.4f} ms "
+        f"({[(k[:40], round(t, 5), n) for k, t, n in kernels]}), plain {plain_ms:.4f} ms, "
+        f"bound {max(bytes_ms, ops_ms) * 1e3:.3f} us ({n_bytes / 1e6:.2f} MB)")
+    return {
+        "name": "fused_match_loss_bwd",
+        "route": "cuda",
+        "source": "zsgnet_tpu_torch/csrc/fused_loss.cu",
+        "replaces": "zsgnet_tpu/ops/pallas/fused_loss.py:199",
+        "launches": 0,
+        "max_abs_err": err,
+        "ms": ms,
+        "device_ms": device_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }
+
+
 def check_small_against_cpu() -> None:
     """The port on the card against the port on the CPU at a small float32
-    size (the CPU path is held against the JAX package by the tests)."""
+    size (the CPU path is held against the JAX package by the tests): the
+    eval step, then 3 train steps. The train steps run at lr 1e-6: at this
+    size the trajectory is chaotic at larger rates (tests/test_torch_train_step.py)."""
     from zsgnet_tpu_torch.config import Config
     from zsgnet_tpu_torch.models.zsgnet import anchor_pyramid_for, get_default_net
-    from zsgnet_tpu_torch.parallel.train_step import make_eval_step
+    from zsgnet_tpu_torch.parallel.train_step import (
+        create_train_state, make_eval_step, make_train_step,
+    )
 
     cfg = Config(resize_img=(64, 64), max_qlen=8, lstm_dim=8, emb_dim=8, fpn_ch=16,
-                 head_ch=16, compute_dtype="float32", use_level_path=False)
+                 head_ch=16, compute_dtype="float32", use_level_path=False, lr=1e-6)
     rng = np.random.default_rng(SEED)
     batch = {
         "img": rng.integers(0, 256, size=(4, 64, 64, 3)).astype(np.uint8),
@@ -167,6 +245,103 @@ def check_small_against_cpu() -> None:
             raise AssertionError(f"small eval step {k}: cuda {res['cuda'][k]} vs cpu {res['cpu'][k]}")
     log(f"small eval step cuda == cpu: loss {float(res['cuda']['loss'][0]):.6f} "
         f"vs {float(res['cpu']['loss'][0]):.6f}")
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        state = create_train_state(cfg, get_default_net(cfg, 30, seed=SEED, device=dev))
+        step = make_train_step(cfg, anchors, device=dev)
+        losses[dev] = [float(step(state, batch)[1]["total"]) for _ in range(3)]
+    if not np.allclose(losses["cuda"], losses["cpu"], rtol=1e-3, atol=0.0):
+        raise AssertionError(f"small train steps: cuda {losses['cuda']} vs cpu {losses['cpu']}")
+    log(f"small train steps cuda == cpu (rtol 1e-3): {losses['cuda']} vs {losses['cpu']}")
+
+
+def check_training(data_dir: str, run_dir: str) -> tuple[int, int]:
+    """Phase 6, this slice's main path: one epoch of training at full width
+    through ``main_dist`` (N_TRAIN rows, bf16, Adam, validation,
+    checkpoints); then a fresh Learner restored from the checkpoint must
+    give the same validation metrics, the step is timed and profiled, and
+    ``overfit_batch(30)`` must lower the loss. Returns the (K1, K2) launch
+    counts of the ``main_dist`` run."""
+    from zsgnet_tpu_torch.config import get_default_cfg
+    from zsgnet_tpu_torch.data.dataset import get_data
+    from zsgnet_tpu_torch.main import main_dist
+    from zsgnet_tpu_torch.ops.cuda.fused_loss import fused_match_loss, fused_match_loss_backward
+    from zsgnet_tpu_torch.train.learner import Learner
+
+    kw = dict(ds_to_use="synthetic", data_dir=data_dir, tmp_path=run_dir, epochs=1, bs=BATCH,
+              seed=SEED, log_every=1)
+    fused_match_loss.launches = fused_match_loss_backward.launches = 0
+    t0 = time.perf_counter()
+    metrics = main_dist("smoke", device="cuda", **kw)
+    torch.cuda.synchronize()
+    launches = (fused_match_loss.launches, fused_match_loss_backward.launches)
+    rows = [json.loads(x) for x in (Path(run_dir) / "logs" / "smoke.jsonl").read_text().splitlines()]
+    log(f"main_dist: 1 epoch of {rows[-1]['step']} steps + validation in "
+        f"{time.perf_counter() - t0:.2f} s; K1 launches {launches[0]}, K2 launches {launches[1]}; "
+        f"log row {rows[-1]}")
+    if launches[1] == 0:
+        raise AssertionError("the training path never launched K2")
+    if rows[-1]["step"] != N_TRAIN // BATCH or not np.isfinite(rows[-1]["train_total"]):
+        raise AssertionError(f"training log row {rows[-1]}")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"validation metrics {metrics}")
+
+    cfg = get_default_cfg().replace(uid="smoke", resume=True, **kw)
+    data = get_data(cfg)
+    learn = Learner("smoke", data, cfg, device="cuda")
+    again = learn.validate()
+    if (again["Acc"], again["MaxPos"], again["num_samples"]) != (
+            metrics["Acc"], metrics["MaxPos"], metrics["num_samples"]) or not np.allclose(
+            [again["MeanIoU"], again["loss"]], [metrics["MeanIoU"], metrics["loss"]], rtol=1e-4):
+        raise AssertionError(f"reloaded checkpoint validates to {again}, the run to {metrics}")
+    log(f"checkpoint step {learn.state.step} reloaded into a fresh Learner: validation {again}")
+
+    batches = list(data.train_dl)
+    step = learn.train_step
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(12):
+        t0 = time.perf_counter()
+        learn.state, ls = step(learn.state, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if not torch.isfinite(ls["total"]):
+            raise AssertionError(f"non-finite training loss at timing step {i}")
+    warm = times[2:]
+    median = statistics.median(warm)
+    fused_match_loss.launches = fused_match_loss_backward.launches = 0
+    kernels = device_kernels(lambda: step(learn.state, batches[0]), 3)
+    per_step = (fused_match_loss.launches / 4, fused_match_loss_backward.launches / 4)
+    busy = sum(t for _, t, _ in kernels)
+    log(f"train step B={BATCH} bf16 Adam: median {median:.3f} ms over {len(warm)} warm steps "
+        f"(all {[round(t, 2) for t in times]}); device time {busy:.3f} ms/step in "
+        f"{sum(n for *_, n in kernels)} kernel launches (idle {1 - busy / median:.1%} of the "
+        f"median step); K1 and K2 launches per step {per_step}; max memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"train step top kernels: {[(k[:60], round(t, 4), n) for k, t, n in kernels[:10]]}")
+    if per_step != (1.0, 1.0):
+        raise AssertionError(f"K1/K2 launches per train step {per_step}, expected 1 each")
+
+    first, last = learn.overfit_batch(30)
+    log(f"overfit_batch(30): first loss {first:.6f}, last {last:.6f}")
+    if not (np.isfinite(last) and last < first):
+        raise AssertionError(f"overfit_batch did not lower the loss: {first} -> {last}")
+    return launches
+
+
+def k3_bound(b: int = BATCH, hw: int = 75, c: int = 256, mid: int = 64) -> str:
+    """The bound of the still unported K3 (one stride-1 layer1 bottleneck,
+    zsgnet_tpu/ops/pallas/fused_bottleneck.py) at its target shape, computed
+    from the shapes alone: bf16 activations in and out plus the weights,
+    and the three convolutions' operations at the bf16 tensor-core peak."""
+    act = b * hw * hw * c * 2
+    weights = (c * mid + 9 * mid * mid + mid * c) * 2
+    flops = 2 * b * hw * hw * (c * mid + 9 * mid * mid + mid * c)
+    bytes_us = (2 * act + weights) / H100_BYTES_PER_S * 1e6
+    ops_us = flops / H100_BF16_OPS_PER_S * 1e6
+    return (f"K3 (not ported) bound at [{b}, {hw}, {hw}, {c}], mid {mid}, computed: "
+            f"{(2 * act + weights) / 1e6:.2f} MB -> {bytes_us:.2f} us, {flops / 1e9:.2f} GFLOP "
+            f"-> {ops_us:.2f} us; bound by {'bytes' if bytes_us >= ops_us else 'operations'}")
 
 
 def main() -> int:
@@ -192,12 +367,12 @@ def main() -> int:
     log(f"built fused_loss in {time.perf_counter() - t0:.2f} s")
 
     from zsgnet_tpu_torch.config import get_default_cfg
-    from zsgnet_tpu_torch.data.dataset import EvalLoader, ImgQuDataset
+    from zsgnet_tpu_torch.data.dataset import BatchLoader, ImgQuDataset
     from zsgnet_tpu_torch.data.synthetic import generate
     from zsgnet_tpu_torch.data.vocab import Vocab
     from zsgnet_tpu_torch.models.zsgnet import anchor_pyramid_for, get_default_net
     from zsgnet_tpu_torch.ops import anchors as anchor_ops, losses
-    from zsgnet_tpu_torch.ops.cuda.fused_loss import fused_match_loss
+    from zsgnet_tpu_torch.ops.cuda.fused_loss import fused_match_loss, fused_match_loss_backward
     from zsgnet_tpu_torch.parallel.train_step import make_compute_loss, make_eval_step, to_device
     from zsgnet_tpu_torch.predict import Grounder
     from zsgnet_tpu_torch.train.evaluator import Evaluator
@@ -205,15 +380,16 @@ def main() -> int:
     cfg = get_default_cfg().replace(use_level_path=False, bs=BATCH)
     anchors = anchor_pyramid_for(cfg)
 
-    # Phase 3: the kernel against its plain version, at the main path's shapes.
+    # Phase 3: the kernels against their plain versions, at the main path's shapes.
     k1 = check_fused_loss(anchors)
+    k2 = check_fused_loss_backward(anchors)
     check_small_against_cpu()
 
     with tempfile.TemporaryDirectory() as tmp:
-        root = generate(tmp, n_train=16, n_val=40, n_test=0, img_size=300, seed=SEED)
+        root = generate(tmp, n_train=N_TRAIN, n_val=40, n_test=16, img_size=300, seed=SEED)
         vocab = Vocab.build(pd.read_csv(root / "csv_dir" / "train.csv")["query"].astype(str))
         val = ImgQuDataset(root / "csv_dir" / "val.csv", root / "images", vocab, cfg)
-        batches = list(EvalLoader(val, BATCH))
+        batches = list(BatchLoader(val, BATCH, shuffle=False, drop_last=False))
         model = get_default_net(cfg, len(vocab), seed=SEED, device="cuda")
         log(f"config: {cfg.resize_img} fpn {cfg.fpn_ch} head {cfg.head_ch} emb {cfg.emb_dim} "
             f"lstm {cfg.lstm_dim} anchors/cell {cfg.num_anchors} A={anchors.shape[0]} "
@@ -237,10 +413,10 @@ def main() -> int:
             raise AssertionError(f"fused loss {fused['total']} != plain {plain['total']}")
         log(f"eval loss (kernel) {float(fused['total']):.6f} == plain {float(plain['total']):.6f}")
 
-        # Phase 4: evaluation, the main path; the counts are read right after.
+        # Phase 4: evaluation; the counts are read right after.
         step = make_eval_step(cfg, anchors, device="cuda")
         evaluator = Evaluator(cfg.acc_iou_threshold)
-        fused_match_loss.launches = 0
+        fused_match_loss.launches = fused_match_loss_backward.launches = 0
         times = []
         for epoch in range(3):
             evaluator.reset()
@@ -252,17 +428,17 @@ def main() -> int:
                 if not torch.isfinite(ev["loss"]).all():
                     raise AssertionError("non-finite eval loss")
                 evaluator.update(ev, batch["case"], batch["idxs"], batch["valid"])
-        k1["launches"] = fused_match_loss.launches
+        eval_launches = (fused_match_loss.launches, fused_match_loss_backward.launches)
         summary = evaluator.summarize()
         if not {"Acc", "MaxPos", "loss"} <= set(summary) or summary["num_samples"] != len(val):
             raise AssertionError(f"evaluator summary {summary}")
-        if k1["launches"] == 0:
-            raise AssertionError("the eval path never launched the fused loss kernel")
+        if eval_launches != (3 * len(batches), 0):
+            raise AssertionError(f"the eval path launched (K1, K2) {eval_launches} times")
         steady = times[len(batches):]
         log(f"eval: {summary}")
         log(f"eval step B={BATCH}: median {statistics.median(steady):.3f} ms/batch over "
             f"{len(steady)} warm batches (first epoch {times[:len(batches)]}); "
-            f"K1 launches {k1['launches']}")
+            f"K1 launches {eval_launches[0]}")
         kernels = device_kernels(lambda: step(model, batches[0]), 5)
         busy = sum(t for _, t, _ in kernels)
         log(f"eval step device time {busy:.3f} ms/batch in {sum(n for *_, n in kernels)} "
@@ -285,9 +461,14 @@ def main() -> int:
                 raise AssertionError(f"grounding {n} requests gave {res}")
             log(f"ground {n} request(s): median {statistics.median(lat):.3f} ms "
                 f"(runs {[round(x, 3) for x in lat]}); first {res[0]}")
+        del model, grounder
 
+        # Phase 6: training, this slice's main path.
+        k1["launches"], k2["launches"] = check_training(tmp, str(Path(tmp) / "run"))
+
+    log(k3_bound())
     print(smi, flush=True)
-    print(json.dumps({"kernels": [k1]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

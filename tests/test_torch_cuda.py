@@ -2,9 +2,10 @@
 
 Marked ``cuda``; without a CUDA device each test skips with that reason.
 On the GPU machine run them with ``python -m pytest tests/test_torch_cuda.py``.
-The kernel is held against its plain PyTorch version on the same card:
-``num_pos`` exact, the two sums to rtol 1e-4 (float32 sums in another
-order).
+Each kernel is held against its plain PyTorch version on the same card.
+K1: ``num_pos`` exact, the two sums to rtol 1e-4 (float32 sums in another
+order), the argmax anchors exact. K2: atol 1e-6 on gradients of order 1
+(elementwise float32; exp and pow round differently from torch's).
 """
 
 import numpy as np
@@ -25,6 +26,8 @@ def cuda():
 
 
 def _inputs(dev, b, img=(300, 300), seed=0):
+    """Seeded K1/K2 inputs; row 0's gt has zero extent, so its IoU ties at
+    0 over every anchor."""
     anchors = anchor_ops.create_anchors((1.0, 1.26, 1.59), (0.5, 1.0, 2.0),
                                         anchor_ops.feature_map_sizes(img))
     rng = np.random.default_rng(seed)
@@ -67,3 +70,66 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         fl.fused_match_loss(att.double(), bbx, *anc, gt, w)
     with pytest.raises(ValueError, match="shape"):
         fl.fused_match_loss(att[:, :-1].contiguous(), bbx, *anc, gt, w)
+
+
+def _best_plain(anc, gt):
+    from zsgnet_tpu_torch.ops import boxes as box_ops
+
+    return box_ops.iou_pairwise(gt[:, None, :], anc[0])[:, 0, :].argmax(dim=-1).int()
+
+
+@pytest.mark.parametrize("b,img", [(16, (300, 300)), (3, (64, 64)), (1, (96, 160))])
+def test_backward_kernel_matches_plain_version(cuda, b, img):
+    att, bbx, anc, gt, w = _inputs(cuda, b, img, seed=1)
+    _, best = fl._launch_fwd(att, bbx, *anc, gt, w, 0.5, 0.4, 0.25, 2.0)
+    assert torch.equal(best, _best_plain(anc, gt))
+    assert int(best[0]) == 0  # the zero-extent row ties at IoU 0: the first anchor
+    grad = torch.tensor([0.05, -0.7, 3.0], device=cuda)
+    launches = fl.fused_match_loss_backward.launches
+    got = fl.fused_match_loss_backward(att, bbx, *anc, gt, w, best, grad)
+    want = fl.fused_match_loss_backward_reference(att, bbx, *anc, gt, w, grad)
+    torch.cuda.synchronize()
+    assert fl.fused_match_loss_backward.launches == launches + 1
+    for g, x in zip(got, want):
+        assert g.shape == x.shape and g.dtype == torch.float32
+        torch.testing.assert_close(g, x, atol=1e-6, rtol=0)
+
+
+def test_function_gradients_match_autograd_of_plain_forward(cuda):
+    att, bbx, anc, gt, w = _inputs(cuda, 16, seed=2)
+    a1, b1 = att.clone().requires_grad_(), bbx.clone().requires_grad_()
+    a2, b2 = att.clone().requires_grad_(), bbx.clone().requires_grad_()
+    fwd, bwd = fl.fused_match_loss.launches, fl.fused_match_loss_backward.launches
+    ls = fl.zsg_loss_fused(a1, b1, anc, gt, lamb_reg=1.5, sample_weight=w)
+    ls["total"].backward()
+    assert (fl.fused_match_loss.launches, fl.fused_match_loss_backward.launches) == (fwd + 1, bwd + 1)
+    sums = fl.fused_match_loss_reference(a2, b2, *anc, gt, w)
+    n = sums[2].clamp(min=1.0)
+    (sums[0] / n + 1.5 * sums[1] / n).backward()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(a1.grad, a2.grad, atol=1e-6, rtol=0)
+    torch.testing.assert_close(b1.grad, b2.grad, atol=1e-6, rtol=0)
+
+
+def test_backward_kernel_is_deterministic(cuda):
+    att, bbx, anc, gt, w = _inputs(cuda, 16, seed=3)
+    _, best = fl._launch_fwd(att, bbx, *anc, gt, w, 0.5, 0.4, 0.25, 2.0)
+    grad = torch.tensor([0.1, 0.2, 0.0], device=cuda)
+    first = fl.fused_match_loss_backward(att, bbx, *anc, gt, w, best, grad)
+    for _ in range(3):
+        again = fl.fused_match_loss_backward(att, bbx, *anc, gt, w, best, grad)
+        assert all(torch.equal(x, y) for x, y in zip(again, first))
+
+
+def test_backward_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    att, bbx, anc, gt, w = _inputs(cuda, 4)
+    _, best = fl._launch_fwd(att, bbx, *anc, gt, w, 0.5, 0.4, 0.25, 2.0)
+    grad = torch.ones(3, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fl.fused_match_loss_backward(att.t().contiguous().t(), bbx, *anc, gt, w, best, grad)
+    with pytest.raises(TypeError, match="dtype"):
+        fl.fused_match_loss_backward(att, bbx, *anc, gt, w, best.long(), grad)
+    with pytest.raises(ValueError, match="shape"):
+        fl.fused_match_loss_backward(att, bbx, *anc, gt, w, best[:-1].contiguous(), grad)
+    with pytest.raises(ValueError, match="shape"):
+        fl.fused_match_loss_backward(att, bbx, *anc, gt, w, best, grad[:2])

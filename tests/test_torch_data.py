@@ -62,7 +62,7 @@ def test_dataset_and_eval_loader_match_jax(roots, monkeypatch):
     csv, imgs = root / "csv_dir" / "val.csv", root / "images"
     t_ds = t_dataset.ImgQuDataset(csv, imgs, TVocab.build(queries), TConfig(**kw))
     j_ds = j_dataset.ImgQuDataset(csv, imgs, JVocab.build(queries), JConfig(**kw))
-    t_batches = list(t_dataset.EvalLoader(t_ds, 4))
+    t_batches = list(t_dataset.BatchLoader(t_ds, 4, shuffle=False, nw=1, drop_last=False))
     j_batches = list(j_dataset.BatchLoader(j_ds, 4, shuffle=False, nw=1, drop_last=False))
     assert len(t_batches) == len(j_batches) == 2
     for tb, jb in zip(t_batches, j_batches):

@@ -55,9 +55,11 @@ def test_sources_name_no_jax(path):
 def _entry_points():
     from zsgnet_tpu_torch.config import Config
     from zsgnet_tpu_torch.models.zsgnet import ZSGNet, anchor_pyramid_for, get_default_net
-    from zsgnet_tpu_torch.parallel.train_step import make_compute_loss, make_eval_step
-    from zsgnet_tpu_torch.predict import Grounder
     from zsgnet_tpu_torch.data.vocab import Vocab
+    from zsgnet_tpu_torch.main import main_dist
+    from zsgnet_tpu_torch.parallel.train_step import make_compute_loss, make_eval_step, make_train_step
+    from zsgnet_tpu_torch.predict import Grounder
+    from zsgnet_tpu_torch.train.learner import Learner
 
     cfg = Config(resize_img=(64, 64), fpn_ch=16, head_ch=16, emb_dim=8, lstm_dim=8)
     anchors = anchor_pyramid_for(cfg)
@@ -67,10 +69,14 @@ def _entry_points():
         "make_eval_step": lambda: make_eval_step(cfg, anchors),
         "make_compute_loss": lambda: make_compute_loss(cfg, anchors),
         "Grounder": lambda: Grounder(cfg, vocab, ZSGNet(cfg, len(vocab)).state_dict()),
+        "make_train_step": lambda: make_train_step(cfg, anchors),
+        "Learner": lambda: Learner("uid", None, cfg),
+        "main_dist": lambda: main_dist("uid", ds_to_use="synthetic", data_dir="no_such_dir"),
     }
 
 
-@pytest.mark.parametrize("name", ["get_default_net", "make_eval_step", "make_compute_loss", "Grounder"])
+@pytest.mark.parametrize("name", ["get_default_net", "make_eval_step", "make_compute_loss", "Grounder",
+                                  "make_train_step", "Learner", "main_dist"])
 def test_entry_points_raise_without_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -1,6 +1,7 @@
-// Fused anchor match + sigmoid focal + smooth-L1 loss, forward (kernel K1).
+// Fused anchor match + sigmoid focal + smooth-L1 loss: forward (kernel K1)
+// and backward (kernel K2).
 //
-// Replaces the Pallas TPU kernel zsgnet_tpu/ops/pallas/fused_loss.py::_fwd_kernel
+// K1 replaces the Pallas TPU kernel zsgnet_tpu/ops/pallas/fused_loss.py::_fwd_kernel
 // (launched by _pallas_call_fwd). Same function, not a block-by-block copy:
 // for every (row b, anchor a) it computes the IoU of the row's gt box with
 // the anchor, the label (positive if IoU >= match_thr or a is the row's
@@ -19,9 +20,23 @@
 // merges a row's chunk candidates into the row's argmax-IoU anchor (the
 // first of tied maxima, as jnp.argmax and torch.argmax; in the JAX package
 // this prologue is XLA outside the Pallas kernel) and computes the loss
-// partials; sum_partials adds them up.
+// partials; sum_partials adds them up. match_loss_partials also writes each
+// row's argmax anchor to best_out, the residual K2 reads instead of
+// searching again (the JAX VJP saves it in its aux array).
 //
-// Bound: each input is read once and three floats are written, so the
+// K2 replaces fused_loss.py::_bwd_kernel (launched by _vjp_bwd). It is
+// elementwise over a (anchor block, row) grid, one thread per anchor: it
+// recomputes the IoU, labels and targets and writes
+// datt = g_cls * focal'(x) * valid * w and dbbx = g_box * smoothL1'(d) * pos * w
+// (closed forms of _focal_grad_tile and _smooth_l1_and_grad). Each thread
+// loads one float4 each of bbx and both anchor arrays and stores one float4
+// of dbbx; no atomics, no reduction, so it is deterministic. The upstream
+// gradient (g_cls, g_box, g_num_pos) is read from device memory, so the
+// backward never waits on the host. Bound: B*A*(4 + 16) bytes read and
+// written each plus A*32 of anchors (11.7 MB at B = 16, A = 17451), 3.5 us
+// at 3.35 TB/s; its arithmetic is a few dozen float operations per anchor.
+//
+// K1's bound: each input is read once and three floats are written, so the
 // function moves B·A·20 + A·32 bytes (6.1 MB at B = 16, A = 17451): under
 // 2 us at the H100's 3.35 TB/s (the argmax pass re-reads the 0.3 MB of
 // tlbr anchors per row from L2). Per (row, anchor) it does a few dozen
@@ -161,12 +176,44 @@ __device__ __forceinline__ float smooth_l1(float pred, float target, float beta)
   return d < beta ? 0.5f * d * d / beta : d - 0.5f * beta;
 }
 
+// Variance-scaled regression targets (t_y, t_x, t_h, t_w) of gt box g at
+// anchor c = (cy, cx, h, w), as ops/boxes.py::bbox_to_reg_params.
+__device__ __forceinline__ float4 reg_targets(float4 g, float4 c) {
+  const float g_cy = (g.x + g.z) * 0.5f;
+  const float g_cx = (g.y + g.w) * 0.5f;
+  const float g_h = g.z - g.x;
+  const float g_w = g.w - g.y;
+  const float a_h = fmaxf(c.z, 1e-8f);
+  const float a_w = fmaxf(c.w, 1e-8f);
+  return make_float4((g_cy - c.x) / (a_h * 0.1f), (g_cx - c.y) / (a_w * 0.1f),
+                     logf(fmaxf(g_h / a_h, 1e-8f)) / 0.2f, logf(fmaxf(g_w / a_w, 1e-8f)) / 0.2f);
+}
+
+// d smooth_l1 / d pred: d / beta inside beta, sign(d) outside (sign(0) = 0).
+__device__ __forceinline__ float smooth_l1_grad(float pred, float target, float beta) {
+  const float d = pred - target;
+  if (fabsf(d) < beta) return d / beta;
+  return d > 0.f ? 1.f : (d < 0.f ? -1.f : 0.f);
+}
+
+// d focal / d logit in closed form, as fused_loss.py::_focal_grad_tile:
+// d p_t/dx = (2 pos - 1) p (1 - p), d bce/dx = p - pos.
+__device__ __forceinline__ float focal_grad(float x, float pos, float alpha, float gamma) {
+  const float prob = 1.f / (1.f + expf(-x));
+  const float p_t = prob * pos + (1.f - prob) * (1.f - pos);
+  const float alpha_t = alpha * pos + (1.f - alpha) * (1.f - pos);
+  const float bce = fmaxf(x, 0.f) - x * pos + log1pf(expf(-fabsf(x)));
+  const float one_m = 1.f - p_t;
+  const float dpt = (2.f * pos - 1.f) * prob * (1.f - prob);
+  return alpha_t * (-gamma * powf(one_m, gamma - 1.f) * dpt * bce + powf(one_m, gamma) * (prob - pos));
+}
+
 __global__ void __launch_bounds__(kThreads) match_loss_partials(
     const float* __restrict__ att, const float4* __restrict__ bbx,
     const float4* __restrict__ anc_tlbr, const float4* __restrict__ anc_cthw,
     const float4* __restrict__ gt, const float* __restrict__ cand_v,
     const int* __restrict__ cand_i, const float* __restrict__ weight,
-    float* __restrict__ partials, int num_anchors, LossParams p) {
+    float* __restrict__ partials, int* __restrict__ best_out, int num_anchors, LossParams p) {
   const int row = blockIdx.y;
   const int chunk = blockIdx.x;
   const float4 g = gt[row];  // (ty, tx, by, bx)
@@ -181,12 +228,9 @@ __global__ void __launch_bounds__(kThreads) match_loss_partials(
       best = cand_i[cand_off + c];
     }
   }
+  if (chunk == 0 && threadIdx.x == 0) best_out[row] = best;
   const float w = weight[row];
   const float area_g = area_tlbr(g);
-  const float g_cy = (g.x + g.z) * 0.5f;
-  const float g_cx = (g.y + g.w) * 0.5f;
-  const float g_h = g.z - g.x;
-  const float g_w = g.w - g.y;
 
   const size_t row_off = static_cast<size_t>(row) * num_anchors;
   const int end = min((chunk + 1) * kChunk, num_anchors);
@@ -210,20 +254,48 @@ __global__ void __launch_bounds__(kThreads) match_loss_partials(
     const float focal = alpha_t * powf(1.f - p_t, p.gamma) * bce;
     cls += focal * valid * w;
 
-    // Variance-scaled targets, as ops/boxes.py::bbox_to_reg_params.
-    const float a_h = fmaxf(c.z, 1e-8f);
-    const float a_w = fmaxf(c.w, 1e-8f);
-    const float t_y = (g_cy - c.x) / (a_h * 0.1f);
-    const float t_x = (g_cx - c.y) / (a_w * 0.1f);
-    const float t_h = logf(fmaxf(g_h / a_h, 1e-8f)) / 0.2f;
-    const float t_w = logf(fmaxf(g_w / a_w, 1e-8f)) / 0.2f;
+    const float4 t4 = reg_targets(g, c);
     const float pos_w = pos * w;
-    box += (smooth_l1(d.x, t_y, p.beta) + smooth_l1(d.y, t_x, p.beta) +
-            smooth_l1(d.z, t_h, p.beta) + smooth_l1(d.w, t_w, p.beta)) *
+    box += (smooth_l1(d.x, t4.x, p.beta) + smooth_l1(d.y, t4.y, p.beta) +
+            smooth_l1(d.z, t4.z, p.beta) + smooth_l1(d.w, t4.w, p.beta)) *
            pos_w;
     npos += pos_w;
   }
   block_sum3(cls, box, npos, partials + (cand_off + chunk) * 3);
+}
+
+// K2. Block (anchor block, row), one thread per anchor. best_idx is K1's
+// best_out; grad_out = (g_cls, g_box, g_num_pos) lives on the device.
+__global__ void __launch_bounds__(kThreads) match_loss_grads(
+    const float* __restrict__ att, const float4* __restrict__ bbx,
+    const float4* __restrict__ anc_tlbr, const float4* __restrict__ anc_cthw,
+    const float4* __restrict__ gt, const float* __restrict__ weight,
+    const int* __restrict__ best_idx, const float* __restrict__ grad_out,
+    float* __restrict__ datt, float4* __restrict__ dbbx, int num_anchors, LossParams p) {
+  const int row = blockIdx.y;
+  const int a = blockIdx.x * kThreads + threadIdx.x;
+  if (a >= num_anchors) return;
+  const float4 g = gt[row];
+  const float w = weight[row];
+  const float g_cls = grad_out[0];
+  const float g_box = grad_out[1];
+  const float4 t = anc_tlbr[a];
+  const float4 c = anc_cthw[a];
+  const size_t i = static_cast<size_t>(row) * num_anchors + a;
+  const float x = att[i];
+  const float4 d = bbx[i];
+
+  const float iou = iou_tlbr(g, area_tlbr(g), t);
+  const bool is_pos = iou >= p.match_thr || a == best_idx[row];
+  const float pos = is_pos ? 1.f : 0.f;
+  const float valid = (is_pos || iou < p.neg_thr) ? 1.f : 0.f;
+  datt[i] = g_cls * focal_grad(x, pos, p.alpha, p.gamma) * valid * w;
+
+  const float4 t4 = reg_targets(g, c);
+  dbbx[i] = make_float4(g_box * smooth_l1_grad(d.x, t4.x, p.beta) * pos * w,
+                        g_box * smooth_l1_grad(d.y, t4.y, p.beta) * pos * w,
+                        g_box * smooth_l1_grad(d.z, t4.z, p.beta) * pos * w,
+                        g_box * smooth_l1_grad(d.w, t4.w, p.beta) * pos * w);
 }
 
 // One block: out[k] = sum over n partial triples of partials[i, k], in a
@@ -246,14 +318,14 @@ extern "C" {
 // Anchors per block, so the caller can size the partials buffer.
 int zsg_match_loss_chunk() { return kChunk; }
 
-// Launches the three kernels on `stream`; out = (cls_sum, box_sum, num_pos).
-// Scratch, with n = B * ceil(A / kChunk): cand_v n floats, cand_i n ints,
-// partials 3n floats. Returns the CUDA error code of the launches (0 on
-// success).
+// K1: launches the three kernels on `stream`; out = (cls_sum, box_sum,
+// num_pos), best_out = each row's argmax-IoU anchor (B ints). Scratch, with
+// n = B * ceil(A / kChunk): cand_v n floats, cand_i n ints, partials 3n
+// floats. Returns the CUDA error code of the launches (0 on success).
 int zsg_match_loss_fwd(const void* att, const void* bbx, const void* anc_tlbr,
                        const void* anc_cthw, const void* gt, const void* weight,
-                       void* cand_v, void* cand_i, void* partials, void* out, int batch,
-                       int num_anchors, float match_thr, float neg_thr, float alpha,
+                       void* cand_v, void* cand_i, void* partials, void* out, void* best_out,
+                       int batch, int num_anchors, float match_thr, float neg_thr, float alpha,
                        float gamma, float beta, void* stream) {
   if (batch <= 0 || batch > 65535 || num_anchors <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int n_chunks = (num_anchors + kChunk - 1) / kChunk;
@@ -270,11 +342,31 @@ int zsg_match_loss_fwd(const void* att, const void* bbx, const void* anc_tlbr,
       static_cast<const float4*>(anc_tlbr), static_cast<const float4*>(anc_cthw),
       static_cast<const float4*>(gt), static_cast<const float*>(cand_v),
       static_cast<const int*>(cand_i), static_cast<const float*>(weight),
-      static_cast<float*>(partials), num_anchors, p);
+      static_cast<float*>(partials), static_cast<int*>(best_out), num_anchors, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   sum_partials<<<1, kThreads, 0, s>>>(static_cast<const float*>(partials), batch * n_chunks,
                                       static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2: datt (B, A) and dbbx (B, A, 4) from the K1 inputs, K1's best_out and
+// the upstream gradient grad_out (3 floats on the device). Returns the CUDA
+// error code of the launch (0 on success).
+int zsg_match_loss_bwd(const void* att, const void* bbx, const void* anc_tlbr,
+                       const void* anc_cthw, const void* gt, const void* weight,
+                       const void* best, const void* grad_out, void* datt, void* dbbx,
+                       int batch, int num_anchors, float match_thr, float neg_thr, float alpha,
+                       float gamma, float beta, void* stream) {
+  if (batch <= 0 || batch > 65535 || num_anchors <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const LossParams p{match_thr, neg_thr, alpha, gamma, beta};
+  const dim3 grid((num_anchors + kThreads - 1) / kThreads, batch);
+  match_loss_grads<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(att), static_cast<const float4*>(bbx),
+      static_cast<const float4*>(anc_tlbr), static_cast<const float4*>(anc_cthw),
+      static_cast<const float4*>(gt), static_cast<const float*>(weight),
+      static_cast<const int*>(best), static_cast<const float*>(grad_out),
+      static_cast<float*>(datt), static_cast<float4*>(dbbx), num_anchors, p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,20 +1,32 @@
-"""CSV grounding dataset and a sequential evaluation loader.
+"""CSV grounding dataset, batch loader and ``get_data`` — port of
+``zsgnet_tpu/data/dataset.py`` for one device.
 
-The evaluation subset of ``zsgnet_tpu/data/dataset.py``: the unified CSV
-schema (``img_id``, pixel ``x1 y1 x2 y2`` or a JSON ``bbox`` column,
-``query``, optional ``case``), PIL-bilinear resize to ``cfg.resize_img``,
-uint8 HWC images (the model normalizes them on the device), queries padded
-to ``cfg.max_qlen``, and boxes as normalized [-1, 1] tlbr (y1, x1, y2, x2).
+The unified CSV schema (``img_id``, pixel ``x1 y1 x2 y2`` or a JSON
+``bbox`` column, ``query``, optional ``case``), PIL-bilinear resize to
+``cfg.resize_img``, uint8 HWC images (the model normalizes them on the
+device), queries padded to ``cfg.max_qlen``, and boxes as normalized
+[-1, 1] tlbr (y1, x1, y2, x2).
 
-``EvalLoader`` walks a split in order and pads the last batch by wrapping,
-with a ``valid`` mask marking the real rows, exactly as the JAX
-``BatchLoader(shuffle=False, drop_last=False)`` does.
+``BatchLoader`` visits the JAX loader's batches in the JAX loader's order:
+epoch ``e`` shuffles with ``default_rng((seed, e))``; ``drop_last=False``
+pads the tail by wrapping and marks the real rows in ``valid``. ``get_data``
+builds the train (shuffled, drop-last), validation and test loaders and
+caches the vocab beside the CSVs.
+
+Not ported yet: host sharding (data parallel), the packed uint8 cache
+(``cfg.use_packed_cache`` reads the same data through the CSV path here)
+and grouped multi-query batches.
 """
 
 from __future__ import annotations
 
 import io
 import json
+import queue
+import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterator
 
@@ -114,18 +126,184 @@ def collate(samples: list[dict[str, np.ndarray]]) -> dict[str, np.ndarray]:
     return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
 
-class EvalLoader:
-    """Batches of ``ds`` in order; the last batch wraps to ``batch_size``
-    rows and its ``valid`` mask marks the real ones."""
+class BatchLoader:
+    """Deterministic prefetching batch iterator over ``ds``.
 
-    def __init__(self, ds: ImgQuDataset, batch_size: int):
+    * epoch ``e`` (``set_epoch``) has the permutation
+      ``default_rng((seed, e)).permutation(n)`` when ``shuffle``;
+    * ``drop_last=False`` pads the tail batch by wrapping; ``valid`` marks
+      the real rows (all ones otherwise);
+    * ``start_batch`` makes the next iteration start at that batch, once
+      (mid-epoch resume, no decode work for the skipped batches);
+    * ``nw`` decode threads keep at most ``nw + prefetch_depth`` batches in
+      flight.
+    """
+
+    def __init__(
+        self, ds: ImgQuDataset, batch_size: int, shuffle: bool, seed: int = 0,
+        nw: int = 4, drop_last: bool = True, prefetch_depth: int = 2,
+    ):
         self.ds = ds
         self.bs = int(batch_size)
+        self.shuffle = shuffle
+        self.seed = seed
+        self.nw = max(1, nw)
+        self.drop_last = drop_last
+        self.prefetch_depth = prefetch_depth
+        self.epoch = 0
+        self.start_batch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def _batch_indices(self) -> list[np.ndarray]:
+        n = len(self.ds)
+        order = np.arange(n)
+        if self.shuffle:
+            order = np.random.default_rng((self.seed, self.epoch)).permutation(n)
+        if self.drop_last:
+            return [order[i * self.bs : (i + 1) * self.bs] for i in range(n // self.bs)]
+        batches = []
+        for i in range(0, n, self.bs):
+            chunk = order[i : i + self.bs]
+            if len(chunk) < self.bs:  # wrap-pad; valid marks the tail
+                chunk = np.concatenate([chunk, order[: self.bs - len(chunk)]])
+            batches.append(chunk)
+        return batches
+
+    def __len__(self) -> int:
+        return len(self._batch_indices())
+
+    def _assemble(self, bi: int, batches: list[np.ndarray]) -> dict[str, np.ndarray]:
+        batch = collate([self.ds[int(i)] for i in batches[bi]])
+        real = len(self.ds) - (len(batches) - 1) * self.bs
+        if not self.drop_last and bi == len(batches) - 1:
+            batch["valid"] = np.arange(self.bs) < real
+        else:
+            batch["valid"] = np.ones(self.bs, dtype=bool)
+        return batch
+
+    def first_batch(self) -> dict[str, np.ndarray]:
+        """Batch 0 of the current epoch, decoded inline (no threads)."""
+        return self._assemble(0, self._batch_indices())
 
     def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
-        n = len(self.ds)
-        for start in range(0, n, self.bs):
-            idxs = [i % n for i in range(start, start + self.bs)]
-            batch = collate([self.ds[i] for i in idxs])
-            batch["valid"] = np.arange(start, start + self.bs) < n
-            yield batch
+        batches = self._batch_indices()
+        start = min(self.start_batch, len(batches))
+        self.start_batch = 0
+        out: queue.Queue = queue.Queue(maxsize=self.prefetch_depth)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            """Bounded put that gives up once the consumer has gone."""
+            while not stop.is_set():
+                try:
+                    out.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer() -> None:
+            window = self.nw + self.prefetch_depth
+            try:
+                with ThreadPoolExecutor(self.nw) as pool:
+                    pending: deque = deque()
+                    for bi in range(start, len(batches)):
+                        pending.append(pool.submit(self._assemble, bi, batches))
+                        if len(pending) >= window and not put(pending.popleft().result()):
+                            return
+                    while pending:
+                        if not put(pending.popleft().result()):
+                            return
+                put(None)
+            except Exception as e:  # a decode error reaches the consumer
+                put(e)
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = out.get()
+                if item is None:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+
+
+@dataclass
+class DataWrap:
+    """The loaders and the vocab of one dataset (reference ``DataWrap``)."""
+
+    path: Path
+    train_dl: BatchLoader
+    valid_dl: BatchLoader
+    test_dl: BatchLoader | None
+    vocab: Vocab
+
+
+# Dataset name → (CSV dir, image dir) under cfg.data_dir.
+DATASET_LAYOUT = {
+    "refclef": ("refclef/csv_dir", "refclef/images"),
+    "flickr30k": ("flickr30k/csv_dir", "flickr30k/images"),
+    "flickr_split0": ("flickr30k_c0/csv_dir", "flickr30k/images"),
+    "flickr_split1": ("flickr30k_c1/csv_dir", "flickr30k/images"),
+    "vg_split_c2": ("vg_split_c2/csv_dir", "visual_genome/images"),
+    "vg_split_c3": ("vg_split_c3/csv_dir", "visual_genome/images"),
+    "synthetic": ("synthetic/csv_dir", "synthetic/images"),
+}
+
+
+def get_data(cfg: Config) -> DataWrap:
+    """Train/val/test loaders and the vocab (reference ``get_data(cfg)``).
+
+    Expects ``<data_dir>/<CSV dir>/{train,val,<test_split>}.csv`` and the
+    image dir of :data:`DATASET_LAYOUT`. The vocab is built from the train
+    queries (``vocab_splits="train"``) or from every split present
+    (``"all"``) and cached beside the CSVs under the JAX package's names,
+    so either package reuses the other's cache.
+    """
+    if cfg.ds_to_use not in DATASET_LAYOUT:
+        raise ValueError(f"unknown ds_to_use={cfg.ds_to_use!r}; known: {sorted(DATASET_LAYOUT)}")
+    csv_sub, img_sub = DATASET_LAYOUT[cfg.ds_to_use]
+    root = Path(cfg.data_dir)
+    csv_dir, img_dir = root / csv_sub, root / img_sub
+    if cfg.vocab_splits == "train":
+        stems = ["train"]
+    else:
+        stems = list(dict.fromkeys(["train", "val", "test", cfg.test_split]))
+    # Checked before any cache write: a partial data dir must not leave a
+    # near-empty vocab behind for later runs.
+    if not (csv_dir / "train.csv").exists():
+        raise FileNotFoundError(f"missing train.csv under {csv_dir}")
+    present = [s for s in stems if (csv_dir / f"{s}.csv").exists()]
+    vocab_path = csv_dir / (
+        "vocab.json" if cfg.vocab_splits == "train" else "vocab_all_" + "-".join(present) + ".json"
+    )
+    if vocab_path.exists():
+        vocab = Vocab.load(vocab_path)
+    else:
+        queries: list[str] = []
+        for stem in present:
+            queries.extend(str(q) for q in pd.read_csv(csv_dir / f"{stem}.csv")["query"])
+        vocab = Vocab.build(queries)
+        vocab.save(vocab_path)
+
+    def loader(split: str, shuffle: bool, drop_last: bool) -> BatchLoader | None:
+        csv_path = csv_dir / f"{split}.csv"
+        if not csv_path.exists():
+            return None
+        return BatchLoader(
+            ImgQuDataset(csv_path, img_dir, vocab, cfg), cfg.bs, shuffle=shuffle,
+            seed=cfg.seed, nw=cfg.nw, drop_last=drop_last, prefetch_depth=cfg.prefetch_depth,
+        )
+
+    train_dl = loader("train", shuffle=True, drop_last=True)
+    valid_dl = loader("val", shuffle=False, drop_last=False)
+    test_dl = loader(cfg.test_split, shuffle=False, drop_last=False)
+    if train_dl is None or valid_dl is None:
+        raise FileNotFoundError(f"missing train.csv/val.csv under {csv_dir}")
+    return DataWrap(path=root, train_dl=train_dl, valid_dl=valid_dl, test_dl=test_dl, vocab=vocab)

@@ -20,10 +20,14 @@ Tensor = torch.Tensor
 
 
 def make_encoder(vocab_size: int, emb_dim: int = 300, hidden: int = 256) -> tuple[nn.Embedding, nn.LSTM]:
-    return (
-        nn.Embedding(vocab_size, emb_dim),
-        nn.LSTM(emb_dim, hidden, bidirectional=True, batch_first=True),
-    )
+    """The embedding and the BiLSTM. The JAX encoder has one bias per
+    direction, the sum of torch's ``bias_ih`` and ``bias_hh``; ``bias_hh``
+    is frozen so that the optimizer updates that sum once per step, as it
+    does in the JAX package, and not twice."""
+    lstm = nn.LSTM(emb_dim, hidden, bidirectional=True, batch_first=True)
+    lstm.bias_hh_l0.requires_grad_(False)
+    lstm.bias_hh_l0_reverse.requires_grad_(False)
+    return nn.Embedding(vocab_size, emb_dim), lstm
 
 
 def encode_query(embedding: nn.Embedding, lstm: nn.LSTM, qvec: Tensor, qlens: Tensor) -> Tensor:

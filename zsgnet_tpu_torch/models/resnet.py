@@ -2,17 +2,49 @@
 
 torchvision's layout and parameter names (``conv1``, ``bn1``,
 ``layer{1..4}.{i}.conv{1,2,3}``/``bn{1,2,3}``/``downsample.{0,1}``),
-bottleneck v1.5 (stride in the 3×3), BatchNorm with eps 1e-5 that uses its
-running statistics in eval mode. Returns the C3/C4/C5 taps (512/1024/2048
-channels, strides 8/16/32), NCHW.
+bottleneck v1.5 (stride in the 3×3), BatchNorm with eps 1e-5 and the JAX
+package's momentum 0.9 (torch's 0.1) that normalizes with the batch's
+moments in training and with its running statistics in eval mode. Returns
+the C3/C4/C5 taps (512/1024/2048 channels, strides 8/16/32), NCHW.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 Tensor = torch.Tensor
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training-mode update of ``running_var`` uses
+    the biased batch variance, as flax's ``nn.BatchNorm`` does; torch's uses
+    the unbiased one, n/(n−1) larger for n values per channel.
+
+    The forward stays torch's ``batch_norm`` (cuDNN on the card), which
+    updates a copy of ``running_var``: with m the momentum and v_u the
+    unbiased variance it writes (1−m)·old + m·v_u there, and
+    (1−m)·old + m·v_u·(n−1)/n, what flax writes, goes into ``running_var``.
+    (The op's autograd node holds the copy, so the buffer itself may
+    change in place.) Every ``bn_variance`` mode of the config trains with
+    this exact variance: ``shifted`` is algebraically equal to it, and
+    ``fast``/``shifted16`` differ from it only by rounding in the JAX
+    package."""
+
+    def forward(self, x: Tensor) -> Tensor:
+        if not self.training:
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        var = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias, True,
+                         self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        keep = 1.0 - self.momentum
+        with torch.no_grad():
+            delta = (var - keep * self.running_var) * ((n - 1) / n)
+            self.running_var.mul_(keep).add_(delta)
+        return y
 
 
 class Bottleneck(nn.Module):
@@ -22,17 +54,17 @@ class Bottleneck(nn.Module):
         super().__init__()
         out_ch = width * self.expansion
         self.conv1 = nn.Conv2d(in_ch, width, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(width)
+        self.bn1 = BatchNorm2d(width)
         self.conv2 = nn.Conv2d(width, width, 3, stride=stride, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(width)
+        self.bn2 = BatchNorm2d(width)
         self.conv3 = nn.Conv2d(width, out_ch, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(out_ch)
+        self.bn3 = BatchNorm2d(out_ch)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = None
         if stride != 1 or in_ch != out_ch:
             self.downsample = nn.Sequential(
                 nn.Conv2d(in_ch, out_ch, 1, stride=stride, bias=False),
-                nn.BatchNorm2d(out_ch),
+                BatchNorm2d(out_ch),
             )
 
     def forward(self, x: Tensor) -> Tensor:
@@ -49,7 +81,7 @@ class ResNet50(nn.Module):
     def __init__(self):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         in_ch = 64

@@ -1,18 +1,23 @@
-"""Fused anchor match + focal + smooth-L1 loss — kernel K1 and its plain version.
+"""Fused anchor match + focal + smooth-L1 loss — kernels K1 and K2 and
+their plain versions.
 
-Port of ``zsgnet_tpu/ops/pallas/fused_loss.py`` (forward only; evaluation
-needs no gradient). ``fused_match_loss`` returns the three sums
-(cls_sum, box_sum, num_pos) that ``zsg_loss_fused`` normalizes:
+Port of ``zsgnet_tpu/ops/pallas/fused_loss.py``. ``fused_match_loss``
+returns the three sums (cls_sum, box_sum, num_pos) that ``zsg_loss_fused``
+normalizes, with a gradient for the logits and the box deltas through
+``FusedMatchLoss``, the counterpart of the JAX ``custom_vjp``:
 
-* on CUDA tensors it launches the hand-written kernel in
-  ``csrc/fused_loss.cu`` (built at first use, ``ops/cuda/build.py``) or
-  raises — it never falls back;
-* on CPU tensors it runs ``fused_match_loss_reference``, the same function
-  in eager PyTorch.
+* on CUDA tensors the forward launches kernel K1 and the backward kernel
+  K2, both hand-written in ``csrc/fused_loss.cu`` (built at first use,
+  ``ops/cuda/build.py``), or raises — they never fall back;
+* on CPU tensors the forward runs ``fused_match_loss_reference`` and the
+  backward ``fused_match_loss_backward_reference``, the same functions in
+  eager PyTorch.
 
-Both compute the prologue too, each row's first-index argmax-IoU anchor,
-which the JAX package runs as XLA outside its Pallas kernel.
-``fused_match_loss.launches`` counts kernel launches.
+K1 also returns each row's first-index argmax-IoU anchor, which the JAX
+package computes with XLA outside its Pallas kernel and saves as its VJP
+residual; the Function saves it so that K2 searches nothing. The plain
+versions recompute it with ``argmax``. ``fused_match_loss.launches`` and
+``fused_match_loss_backward.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -37,19 +42,24 @@ def pack_anchors(anchors_cthw: np.ndarray | Tensor, device: str | torch.device) 
     return box_ops.cthw2tlbr(cthw).contiguous(), cthw
 
 
+def _labels(anchors_tlbr: Tensor, gt: Tensor, match_thr: float, neg_thr: float) -> tuple[Tensor, Tensor]:
+    """(pos, valid) float (B, A) masks: positive at IoU ≥ match_thr or at the
+    row's argmax-IoU anchor (the first of tied maxima), ignored in between."""
+    iou = box_ops.iou_pairwise(gt[:, None, :], anchors_tlbr)[:, 0, :]
+    best = iou.argmax(dim=-1, keepdim=True)
+    is_best = torch.zeros_like(iou, dtype=torch.bool).scatter(-1, best, True)
+    pos_b = (iou >= match_thr) | is_best
+    return pos_b.float(), (pos_b | (iou < neg_thr)).float()
+
+
 def fused_match_loss_reference(
     att: Tensor, bbx: Tensor, anchors_tlbr: Tensor, anchors_cthw: Tensor,
     gt: Tensor, w: Tensor, match_thr: float = 0.5, neg_thr: float = 0.4,
     alpha: float = 0.25, gamma: float = 2.0,
 ) -> Tensor:
-    """Plain PyTorch version of the kernel: the same labels, losses and
-    weights, as dense tensors. Returns (3,) float32 [cls_sum, box_sum, num_pos]."""
-    iou = box_ops.iou_pairwise(gt[:, None, :], anchors_tlbr)[:, 0, :]
-    best = iou.argmax(dim=-1, keepdim=True)  # the first of tied maxima
-    is_best = torch.zeros_like(iou, dtype=torch.bool).scatter(-1, best, True)
-    pos_b = (iou >= match_thr) | is_best
-    pos = pos_b.float()
-    valid = (pos_b | (iou < neg_thr)).float()
+    """Plain PyTorch version of K1: the same labels, losses and weights, as
+    dense tensors. Returns (3,) float32 [cls_sum, box_sum, num_pos]."""
+    pos, valid = _labels(anchors_tlbr, gt, match_thr, neg_thr)
     w = w.float()[:, None]
     cls_sum = (sigmoid_focal_loss(att, pos, alpha, gamma) * valid * w).sum()
     targets = box_ops.bbox_to_reg_params(anchors_cthw[None], gt[:, None, :])
@@ -58,14 +68,47 @@ def fused_match_loss_reference(
     return torch.stack([cls_sum, box_sum, pos_w.sum()])
 
 
+def fused_match_loss_backward_reference(
+    att: Tensor, bbx: Tensor, anchors_tlbr: Tensor, anchors_cthw: Tensor,
+    gt: Tensor, w: Tensor, grad: Tensor, match_thr: float = 0.5, neg_thr: float = 0.4,
+    alpha: float = 0.25, gamma: float = 2.0,
+) -> tuple[Tensor, Tensor]:
+    """Plain PyTorch version of K2, in the closed forms of the JAX kernel
+    (``_focal_grad_tile``, ``_smooth_l1_and_grad``), not autograd.
+
+    grad (3,) is the upstream gradient of (cls_sum, box_sum, num_pos);
+    num_pos depends on no input that has a gradient. Returns datt (B, A)
+    = g_cls·focal'(x)·valid·w and dbbx (B, A, 4) = g_box·smoothL1'(d)·pos·w.
+    """
+    pos, valid = _labels(anchors_tlbr, gt, match_thr, neg_thr)
+    w = w.float()[:, None]
+    x = att.float()
+    p = torch.sigmoid(x)
+    p_t = p * pos + (1.0 - p) * (1.0 - pos)
+    alpha_t = alpha * pos + (1.0 - alpha) * (1.0 - pos)
+    bce = x.clamp(min=0.0) - x * pos + torch.log1p(torch.exp(-x.abs()))
+    one_m = 1.0 - p_t
+    dpt = (2.0 * pos - 1.0) * p * (1.0 - p)
+    focal_grad = alpha_t * (
+        -gamma * torch.pow(one_m, gamma - 1.0) * dpt * bce + torch.pow(one_m, gamma) * (p - pos)
+    )
+    datt = grad[0] * focal_grad * valid * w
+    d = bbx.float() - box_ops.bbox_to_reg_params(anchors_cthw[None], gt[:, None, :])
+    sl1_grad = torch.where(d.abs() < BETA, d / BETA, torch.sign(d))
+    dbbx = grad[1] * sl1_grad * pos[..., None] * w[..., None]
+    return datt, dbbx
+
+
 def _lib() -> ctypes.CDLL:
     from zsgnet_tpu_torch.ops.cuda import build
 
     lib = build.load("fused_loss")
     if not getattr(lib, "_zsg_typed", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.zsg_match_loss_fwd.argtypes = [ptr] * 10 + [i32, i32] + [f32] * 5 + [ptr]
+        lib.zsg_match_loss_fwd.argtypes = [ptr] * 11 + [i32, i32] + [f32] * 5 + [ptr]
         lib.zsg_match_loss_fwd.restype = i32
+        lib.zsg_match_loss_bwd.argtypes = [ptr] * 10 + [i32, i32] + [f32] * 5 + [ptr]
+        lib.zsg_match_loss_bwd.restype = i32
         lib.zsg_match_loss_chunk.argtypes = []
         lib.zsg_match_loss_chunk.restype = i32
         lib._zsg_typed = True
@@ -88,11 +131,10 @@ def _check(
         raise ValueError(f"{name} must be 16-byte aligned for the kernel's float4 loads")
 
 
-def _launch(
-    att: Tensor, bbx: Tensor, anchors_tlbr: Tensor, anchors_cthw: Tensor,
-    gt: Tensor, w: Tensor, match_thr: float, neg_thr: float, alpha: float, gamma: float,
-) -> Tensor:
-    """Check the CUDA tensors and launch the kernel on the current stream."""
+def _check_inputs(
+    att: Tensor, bbx: Tensor, anchors_tlbr: Tensor, anchors_cthw: Tensor, gt: Tensor, w: Tensor,
+) -> tuple[int, int]:
+    """Check the CUDA tensors both kernels read; → (B, A)."""
     if att.dim() != 2:
         raise ValueError(f"att must be (B, A), got shape {tuple(att.shape)}")
     b, a = att.shape
@@ -106,22 +148,111 @@ def _launch(
     _check("w", w, (b,), f32, dev)
     if not 0 < b <= 65535:
         raise ValueError(f"batch {b} is outside the kernel's grid limit (1..65535)")
+    return b, a
+
+
+def _launch_fwd(
+    att: Tensor, bbx: Tensor, anchors_tlbr: Tensor, anchors_cthw: Tensor,
+    gt: Tensor, w: Tensor, match_thr: float, neg_thr: float, alpha: float, gamma: float,
+) -> tuple[Tensor, Tensor]:
+    """Launch K1 on the current stream → ((3,) sums, (B,) int32 best anchors)."""
+    b, a = _check_inputs(att, bbx, anchors_tlbr, anchors_cthw, gt, w)
+    dev = att.device
     lib = _lib()
     n_chunks = -(-a // lib.zsg_match_loss_chunk())
-    cand_v = torch.empty((b * n_chunks,), dtype=f32, device=dev)
+    cand_v = torch.empty((b * n_chunks,), dtype=torch.float32, device=dev)
     cand_i = torch.empty((b * n_chunks,), dtype=torch.int32, device=dev)
-    partials = torch.empty((b * n_chunks * 3,), dtype=f32, device=dev)
-    out = torch.empty((3,), dtype=f32, device=dev)
+    partials = torch.empty((b * n_chunks * 3,), dtype=torch.float32, device=dev)
+    out = torch.empty((3,), dtype=torch.float32, device=dev)
+    best = torch.empty((b,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):  # the runtime launches on the current device
         err = lib.zsg_match_loss_fwd(
             att.data_ptr(), bbx.data_ptr(), anchors_tlbr.data_ptr(), anchors_cthw.data_ptr(),
             gt.data_ptr(), w.data_ptr(), cand_v.data_ptr(), cand_i.data_ptr(),
-            partials.data_ptr(), out.data_ptr(), b, a, match_thr, neg_thr, alpha, gamma, BETA,
-            torch.cuda.current_stream(dev).cuda_stream,
+            partials.data_ptr(), out.data_ptr(), best.data_ptr(), b, a,
+            match_thr, neg_thr, alpha, gamma, BETA, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"fused_loss kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"fused_loss forward kernel launch failed with CUDA error {err}")
+    return out, best
+
+
+def _launch_bwd(
+    att: Tensor, bbx: Tensor, anchors_tlbr: Tensor, anchors_cthw: Tensor, gt: Tensor,
+    w: Tensor, best: Tensor, grad: Tensor, match_thr: float, neg_thr: float,
+    alpha: float, gamma: float,
+) -> tuple[Tensor, Tensor]:
+    """Launch K2 on the current stream → (datt, dbbx)."""
+    b, a = _check_inputs(att, bbx, anchors_tlbr, anchors_cthw, gt, w)
+    dev = att.device
+    _check("best", best, (b,), torch.int32, dev)
+    _check("grad", grad, (3,), torch.float32, dev)
+    datt = torch.empty_like(att)
+    dbbx = torch.empty_like(bbx)  # a fresh allocation is 16-byte aligned
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.zsg_match_loss_bwd(
+            att.data_ptr(), bbx.data_ptr(), anchors_tlbr.data_ptr(), anchors_cthw.data_ptr(),
+            gt.data_ptr(), w.data_ptr(), best.data_ptr(), grad.data_ptr(),
+            datt.data_ptr(), dbbx.data_ptr(), b, a,
+            match_thr, neg_thr, alpha, gamma, BETA, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_loss backward kernel launch failed with CUDA error {err}")
+    return datt, dbbx
+
+
+def _device_kind(att: Tensor) -> str:
+    if att.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the fused loss runs on cuda or cpu, not {att.device}")
+    return att.device.type
+
+
+def fused_match_loss_backward(
+    att: Tensor, bbx: Tensor, anchors_tlbr: Tensor, anchors_cthw: Tensor, gt: Tensor,
+    w: Tensor, best: Tensor | None, grad: Tensor, match_thr: float = 0.5,
+    neg_thr: float = 0.4, alpha: float = 0.25, gamma: float = 2.0,
+) -> tuple[Tensor, Tensor]:
+    """(datt, dbbx) for the upstream gradient ``grad`` (3,) of the sums.
+
+    K2 on CUDA, where ``best`` is K1's (B,) int32 argmax anchors; the plain
+    version on the CPU, which finds them itself and ignores ``best``."""
+    if _device_kind(att) == "cpu":
+        return fused_match_loss_backward_reference(
+            att, bbx, anchors_tlbr, anchors_cthw, gt, w, grad, match_thr, neg_thr, alpha, gamma
+        )
+    out = _launch_bwd(att, bbx, anchors_tlbr, anchors_cthw, gt, w, best,
+                      grad.float().contiguous(), match_thr, neg_thr, alpha, gamma)
+    fused_match_loss_backward.launches += 1
     return out
+
+
+fused_match_loss_backward.launches = 0
+
+
+class FusedMatchLoss(torch.autograd.Function):
+    """The fused sums with a gradient for ``att`` and ``bbx``: K1 forward and
+    K2 backward on CUDA, the two plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, att, bbx, anchors_tlbr, anchors_cthw, gt, w, match_thr, neg_thr, alpha, gamma):
+        hp = (match_thr, neg_thr, alpha, gamma)
+        if _device_kind(att) == "cpu":
+            out, best = fused_match_loss_reference(att, bbx, anchors_tlbr, anchors_cthw, gt, w, *hp), None
+        else:
+            out, best = _launch_fwd(att, bbx, anchors_tlbr, anchors_cthw, gt, w, *hp)
+            fused_match_loss.launches += 1
+        ctx.save_for_backward(att, bbx, anchors_tlbr, anchors_cthw, gt, w, best)
+        ctx.hp = hp
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        att, bbx, anchors_tlbr, anchors_cthw, gt, w, best = ctx.saved_tensors
+        datt, dbbx = fused_match_loss_backward(
+            att, bbx, anchors_tlbr, anchors_cthw, gt, w, best, grad, *ctx.hp
+        )
+        return datt, dbbx, None, None, None, None, None, None, None, None
 
 
 def fused_match_loss(
@@ -129,24 +260,17 @@ def fused_match_loss(
     gt: Tensor, w: Tensor, match_thr: float = 0.5, neg_thr: float = 0.4,
     alpha: float = 0.25, gamma: float = 2.0,
 ) -> Tensor:
-    """(3,) float32 [cls_sum, box_sum, num_pos] of the fused loss.
+    """(3,) float32 [cls_sum, box_sum, num_pos] of the fused loss,
+    differentiable in ``att`` and ``bbx``.
 
     att (B, A) and bbx (B, A, 4) float32 contiguous; anchors from
     :func:`pack_anchors`; gt (B, 4) tlbr; w (B,) per-sample weights (ones
-    for unweighted). Kernel on CUDA, plain version on the CPU.
+    for unweighted). Kernels on CUDA, plain versions on the CPU.
     """
-    if att.device.type == "cpu":
-        return fused_match_loss_reference(
-            att, bbx, anchors_tlbr, anchors_cthw, gt, w, match_thr, neg_thr, alpha, gamma
-        )
-    if att.device.type != "cuda":
-        raise ValueError(f"fused_match_loss runs on cuda or cpu, not {att.device}")
-    out = _launch(
-        att, bbx, anchors_tlbr, anchors_cthw, gt.float().contiguous(),
-        w.float().contiguous(), match_thr, neg_thr, alpha, gamma,
+    return FusedMatchLoss.apply(
+        att, bbx, anchors_tlbr, anchors_cthw, gt.float().contiguous(), w.float().contiguous(),
+        match_thr, neg_thr, alpha, gamma,
     )
-    fused_match_loss.launches += 1
-    return out
 
 
 fused_match_loss.launches = 0
