@@ -9,8 +9,10 @@ FPN 256, head 256, embedding 300, BiLSTM 256, 9 anchors, bf16
 convolutions) with seeded random weights on a synthetic dataset:
 evaluation over the validation split, a ``Grounder`` answering 1 and then
 16 requests, and training through ``main_dist`` (one epoch of Adam steps,
-validation, checkpoints), then a reload, step timings and an overfit run.
-Each path is driven with the kernels' launch counts set to 0 just before
+validation, checkpoints), then a reload, step timings and an overfit run,
+and last layer1 of the same model through the fused inference bottleneck
+(K3) against the eager layer1, with K3's timings from
+``zsgnet_tpu_torch.tools.bench_bottleneck``. Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after. Every phase is fatal on failure. The
 next-to-last line of standard output is a JSON object describing each
 kernel; the last is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -64,7 +66,7 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_kernels(fn, iters: int) -> list[tuple[str, float, int]]:
+def device_kernels(fn, iters: int) -> list[tuple[str, float, float]]:
     """(kernel name, device ms per call, launches per call) of ``fn``, from
     torch.profiler's CUDA activity, largest first."""
     from torch.autograd import DeviceType
@@ -82,7 +84,7 @@ def device_kernels(fn, iters: int) -> list[tuple[str, float, int]]:
     events = prof.key_averages()
     host_names = {e.key for e in events if e.device_type == DeviceType.CPU}
     rows = [
-        (e.key, getattr(e, "self_device_time_total", 0.0) / 1e3 / iters, e.count // iters)
+        (e.key, getattr(e, "self_device_time_total", 0.0) / 1e3 / iters, e.count / iters)
         for e in events
         if e.device_type == DeviceType.CUDA and e.key not in host_names
     ]
@@ -256,7 +258,7 @@ def check_small_against_cpu() -> None:
 
 
 def check_training(data_dir: str, run_dir: str) -> tuple[int, int]:
-    """Phase 6, this slice's main path: one epoch of training at full width
+    """Phase 6, the training path: one epoch of training at full width
     through ``main_dist`` (N_TRAIN rows, bf16, Adam, validation,
     checkpoints); then a fresh Learner restored from the checkpoint must
     give the same validation metrics, the step is timed and profiled, and
@@ -329,19 +331,138 @@ def check_training(data_dir: str, run_dir: str) -> tuple[int, int]:
     return launches
 
 
-def k3_bound(b: int = BATCH, hw: int = 75, c: int = 256, mid: int = 64) -> str:
-    """The bound of the still unported K3 (one stride-1 layer1 bottleneck,
-    zsgnet_tpu/ops/pallas/fused_bottleneck.py) at its target shape, computed
-    from the shapes alone: bf16 activations in and out plus the weights,
-    and the three convolutions' operations at the bf16 tensor-core peak."""
-    act = b * hw * hw * c * 2
-    weights = (c * mid + 9 * mid * mid + mid * c) * 2
-    flops = 2 * b * hw * hw * (c * mid + 9 * mid * mid + mid * c)
-    bytes_us = (2 * act + weights) / H100_BYTES_PER_S * 1e6
-    ops_us = flops / H100_BF16_OPS_PER_S * 1e6
-    return (f"K3 (not ported) bound at [{b}, {hw}, {hw}, {c}], mid {mid}, computed: "
-            f"{(2 * act + weights) / 1e6:.2f} MB -> {bytes_us:.2f} us, {flops / 1e9:.2f} GFLOP "
-            f"-> {ops_us:.2f} us; bound by {'bytes' if bytes_us >= ops_us else 'operations'}")
+K3_SHAPES = {  # (B, H, W, Cin, Cmid, Cout, projection): the main path's two blocks and an odd one
+    "identity": (BATCH, 75, 75, 256, 64, 256, False),
+    "projection": (BATCH, 75, 75, 64, 64, 256, True),
+    "odd identity": (3, 11, 9, 16, 8, 16, False),
+    "odd projection": (3, 11, 9, 16, 8, 32, True),
+}
+
+
+def check_bottleneck_kernel() -> float:
+    """Phase 7a: K3 against its plain version in bf16 at layer1's identity
+    and projection blocks and at an odd small shape (atol/rtol 2e-2, the JAX
+    test's), bit-identical on repeat. Returns the identity block's max abs
+    error."""
+    from zsgnet_tpu_torch.ops.cuda.fused_bottleneck import (
+        bottleneck_infer_reference, fused_bottleneck_infer,
+    )
+    from zsgnet_tpu_torch.tools.bench_bottleneck import random_args
+
+    errors = {}
+    for i, (name, (b, h, w, cin, cmid, cout, proj)) in enumerate(K3_SHAPES.items()):
+        rng = np.random.default_rng(SEED + 10 + i)
+        x = torch.from_numpy(rng.normal(size=(b, h, w, cin)).astype(np.float32)).cuda().bfloat16()
+        args = random_args(rng, cin, cmid, cout, proj, "cuda")
+        got = fused_bottleneck_infer(x, **args)
+        again = fused_bottleneck_infer(x, **args)
+        want = bottleneck_infer_reference(x, **args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"K3 {name}: two calls on the same input differ")
+        errors[name] = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2):
+            raise AssertionError(f"K3 {name} {list(x.shape)} -> {cout}: max abs error {errors[name]} "
+                                 "against its plain version (atol/rtol 2e-2)")
+    log(f"K3 vs plain (bf16, atol/rtol 2e-2, bit-identical on repeat): max abs errors {errors}")
+    return errors["identity"]
+
+
+def check_layer1() -> int:
+    """Phase 7b, this slice's path: layer1 of the full-width model (BatchNorm
+    statistics drawn from U(0.6, 1.4)) through ``block_args`` and three K3
+    launches, against the eager layer1 in eval mode under bf16 autocast, on
+    the stem's output of a synthetic batch. Returns K3's launches."""
+    from zsgnet_tpu_torch.config import get_default_cfg
+    from zsgnet_tpu_torch.models.zsgnet import get_default_net
+    from zsgnet_tpu_torch.ops.cuda.fused_bottleneck import block_args, fused_bottleneck_infer
+
+    model = get_default_net(get_default_cfg(), seed=SEED, device="cuda")
+    enc = model.backbone.encoder
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for m in (enc.bn1, *(m for m in enc.layer1.modules() if isinstance(m, torch.nn.BatchNorm2d))):
+            for buf in (m.running_mean, m.running_var):
+                buf.copy_(torch.rand(buf.shape, generator=gen) * 0.8 + 0.6)
+    img = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, size=(BATCH, 300, 300, 3)).astype(np.uint8)).cuda()
+    with torch.inference_mode():
+        x = (img.permute(0, 3, 1, 2).float() / 255.0 - model.img_mean) / model.img_std
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            stem = enc.maxpool(enc.relu(enc.bn1(enc.conv1(x))))
+            want = enc.layer1(stem).permute(0, 2, 3, 1)
+        args = [block_args(block) for block in enc.layer1]
+        h = stem.permute(0, 2, 3, 1).contiguous()
+        fused_bottleneck_infer.launches = 0
+        for a in args:
+            h = fused_bottleneck_infer(h, **a)
+        torch.cuda.synchronize()
+        launches = fused_bottleneck_infer.launches
+    diff = float((h.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    log(f"layer1 {list(stem.shape)} NCHW -> {list(h.shape)} NHWC through {launches} K3 launches vs "
+        f"the eager layer1 (bf16 autocast): max abs diff {diff:.4f}, scale {scale:.4f}, "
+        f"relative {diff / max(scale, 1e-6):.5f}")
+    if h.dtype != torch.bfloat16 or tuple(h.shape) != (BATCH, 75, 75, 256) or not torch.isfinite(h).all():
+        raise AssertionError(f"layer1 through K3 gave {h.dtype} {tuple(h.shape)}")
+    if not diff / max(scale, 1e-6) < 0.05:
+        raise AssertionError(f"layer1 through K3 differs from the eager layer1 by {diff} of {scale}")
+    if launches != 3:
+        raise AssertionError(f"layer1 launched K3 {launches} times, expected 3")
+    return launches
+
+
+def bottleneck_timings() -> dict:
+    """Phase 7c: the bench entry at B = 16 (identity and projection) and once
+    at its default B = 128 (identity)."""
+    from zsgnet_tpu_torch.tools.bench_bottleneck import bench
+
+    runs = {"identity": bench(BATCH), "projection": bench(BATCH, proj=True), "identity B=128": bench()}
+    for name, r in runs.items():
+        bytes_ms = r["bytes"] / H100_BYTES_PER_S * 1e3
+        ops_ms = r["flops"] / H100_BF16_OPS_PER_S * 1e3
+        r["bound_ms"], r["bound_by"] = max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+        log(f"K3 {name} {r['shape']} -> {r['cout']}: {r['k3_ms']:.4f} ms per call "
+            f"({'chained' if r['chained'] else 'repeated'}), plain {r['plain_ms']:.4f} ms, eager cuDNN "
+            f"NCHW {r['eager_nchw_ms']:.4f} ms, channels_last {r['eager_channels_last_ms']:.4f} ms; "
+            f"bound {r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} ({r['bytes'] / 1e6:.2f} MB, "
+            f"{r['flops'] / 1e9:.2f} GFLOP); rel diff {r['rel_diff']:.5f}, eager {r['eager_rel_diff']:.5f}")
+    return runs
+
+
+def check_bottleneck() -> dict:
+    """Phase 7: K3 against its plain version, the full-width layer1 through
+    it, and its timings; returns its entry of the kernels line."""
+    from zsgnet_tpu_torch.ops.cuda.fused_bottleneck import fused_bottleneck_infer
+    from zsgnet_tpu_torch.tools.bench_bottleneck import random_args
+
+    err = check_bottleneck_kernel()
+    launches = check_layer1()
+    runs = bottleneck_timings()
+    b, h, w, cin, cmid, cout, proj = K3_SHAPES["identity"]
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.normal(size=(b, h, w, cin)).astype(np.float32)).cuda().bfloat16()
+    args = random_args(rng, cin, cmid, cout, proj, "cuda")
+    kernels = device_kernels(lambda: fused_bottleneck_infer(x, **args), 20)
+    # Per launch of its one kernel: the profiler may record fewer launches than were made.
+    device_ms = sum(t / n for _, t, n in kernels)
+    log(f"K3 identity device time {device_ms:.4f} ms per launch "
+        f"({[(k[:60], round(t, 5), n) for k, t, n in kernels]}: name, ms and launches per call)")
+    r = runs["identity"]
+    return {
+        "name": "fused_bottleneck_infer",
+        "route": "cuda",
+        "source": "zsgnet_tpu_torch/csrc/fused_bottleneck.cu",
+        "replaces": "zsgnet_tpu/ops/pallas/fused_bottleneck.py:53",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": r["k3_ms"],
+        "device_ms": device_ms,
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": r["eager_nchw_ms"],
+    }
 
 
 def main() -> int:
@@ -363,8 +484,8 @@ def main() -> int:
     from zsgnet_tpu_torch.ops.cuda import build
 
     t0 = time.perf_counter()
-    build.load("fused_loss")
-    log(f"built fused_loss in {time.perf_counter() - t0:.2f} s")
+    build.load_all(["fused_loss", "fused_bottleneck"])
+    log(f"built fused_loss and fused_bottleneck in parallel in {time.perf_counter() - t0:.2f} s")
 
     from zsgnet_tpu_torch.config import get_default_cfg
     from zsgnet_tpu_torch.data.dataset import BatchLoader, ImgQuDataset
@@ -463,12 +584,14 @@ def main() -> int:
                 f"(runs {[round(x, 3) for x in lat]}); first {res[0]}")
         del model, grounder
 
-        # Phase 6: training, this slice's main path.
+        # Phase 6: training.
         k1["launches"], k2["launches"] = check_training(tmp, str(Path(tmp) / "run"))
 
-    log(k3_bound())
+    # Phase 7: K3, this slice's path.
+    k3 = check_bottleneck()
+
     print(smi, flush=True)
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

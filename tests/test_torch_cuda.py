@@ -5,7 +5,8 @@ On the GPU machine run them with ``python -m pytest tests/test_torch_cuda.py``.
 Each kernel is held against its plain PyTorch version on the same card.
 K1: ``num_pos`` exact, the two sums to rtol 1e-4 (float32 sums in another
 order), the argmax anchors exact. K2: atol 1e-6 on gradients of order 1
-(elementwise float32; exp and pow round differently from torch's).
+(elementwise float32; exp and pow round differently from torch's). K3:
+atol/rtol 2e-2 (below), bit-identical on repeat.
 """
 
 import numpy as np
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from zsgnet_tpu_torch.ops import anchors as anchor_ops
+from zsgnet_tpu_torch.ops.cuda import fused_bottleneck as fb
 from zsgnet_tpu_torch.ops.cuda import fused_loss as fl
 
 pytestmark = pytest.mark.cuda
@@ -133,3 +135,68 @@ def test_backward_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         fl.fused_match_loss_backward(att, bbx, *anc, gt, w, best[:-1].contiguous(), grad)
     with pytest.raises(ValueError, match="shape"):
         fl.fused_match_loss_backward(att, bbx, *anc, gt, w, best, grad[:2])
+
+
+# ------------------------------------------------------------------ K3
+# K3 against its plain version in the working type bf16 (and float32 at the
+# small shape): atol/rtol 2e-2, the JAX test's tolerance (bf16 rounding of
+# h1/h2 may flip on float32 sums taken in another order).
+
+K3_SHAPES = {
+    "layer1-identity": (16, 75, 75, 256, 64, 256, False),
+    "layer1-projection": (16, 75, 75, 64, 64, 256, True),
+    "odd-identity": (3, 11, 9, 16, 8, 16, False),
+    "odd-projection": (3, 11, 9, 16, 8, 32, True),
+}
+
+
+def _k3_inputs(dev, shape, dtype=torch.bfloat16, seed=0):
+    from zsgnet_tpu_torch.tools.bench_bottleneck import random_args
+
+    b, h, w, cin, cmid, cout, proj = shape
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(b, h, w, cin)).astype(np.float32)).to(dev).to(dtype)
+    return x, random_args(rng, cin, cmid, cout, proj, dev)
+
+
+@pytest.mark.parametrize("name", list(K3_SHAPES))
+def test_bottleneck_kernel_matches_plain_version(cuda, name):
+    x, args = _k3_inputs(cuda, K3_SHAPES[name])
+    launches = fb.fused_bottleneck_infer.launches
+    got = fb.fused_bottleneck_infer(x, **args)
+    want = fb.bottleneck_infer_reference(x, **args)
+    torch.cuda.synchronize()
+    assert fb.fused_bottleneck_infer.launches == launches + 1
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("proj", [False, True], ids=["identity", "projection"])
+def test_bottleneck_kernel_in_float32(cuda, proj):
+    shape = K3_SHAPES["odd-projection" if proj else "odd-identity"]
+    x, args = _k3_inputs(cuda, shape, torch.float32, seed=1)
+    got = fb.fused_bottleneck_infer(x, **args)
+    want = fb.bottleneck_infer_reference(x, **args)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+
+
+def test_bottleneck_kernel_is_deterministic(cuda):
+    x, args = _k3_inputs(cuda, K3_SHAPES["layer1-identity"], seed=2)
+    first = fb.fused_bottleneck_infer(x, **args)
+    for _ in range(2):
+        assert torch.equal(fb.fused_bottleneck_infer(x, **args), first)
+
+
+def test_bottleneck_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x, args = _k3_inputs(cuda, K3_SHAPES["odd-identity"])
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fb.fused_bottleneck_infer(x[..., :8].contiguous(), **{**args, "w1": args["w1"][:8].contiguous(),
+                                                             "w3": args["w3"][:, :8].contiguous(),
+                                                             "s3": args["s3"][:8], "b3": args["b3"][:8]})
+    with pytest.raises(ValueError, match="contiguous"):
+        fb.fused_bottleneck_infer(x.transpose(1, 2).contiguous().transpose(1, 2), **args)
+    with pytest.raises(TypeError, match="dtype"):
+        fb.fused_bottleneck_infer(x.half(), **args)
+    with pytest.raises(ValueError, match="is on"):
+        fb.fused_bottleneck_infer(x, **{**args, "w1": args["w1"].cpu()})

@@ -2,8 +2,12 @@
 JAX init (biases and BatchNorm statistics perturbed) goes through
 ``state_dict_from_jax`` into the port, and both forward the same seeded
 batch in float32 on the CPU (atol 5e-4, rtol 2e-3, the budget of
-tests/test_convert_full.py). The JAX package's own converter maps the
-port's ``state_dict`` back onto the JAX params exactly."""
+tests/test_convert_full.py), at 64² (C3/C4/C5 8/4/2: integer top-down
+ratios) and at 80² (10/5/3: the FPN's nearest upsample maps 3 → 5 and
+5 → 10, the non-integer case of 300²'s 10 → 19). The JAX package's own
+converter maps the port's ``state_dict`` back onto the JAX params exactly."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +21,7 @@ from zsgnet_tpu.convert.torch_import import convert_zsgnet_checkpoint
 from zsgnet_tpu.models.bilstm import BiLSTMEncoder as JBiLSTM
 from zsgnet_tpu.models.zsgnet import ZSGNet as JZSGNet
 from zsgnet_tpu_torch.convert import ungroup_head_channels
-from zsgnet_tpu_torch.models.bilstm import encode_query, make_encoder
+from zsgnet_tpu_torch.models.bilstm import encode_query, fold_lstm_bias_, make_encoder
 from zsgnet_tpu_torch.models.zsgnet import FOCAL_PRIOR_BIAS, ZSGNet, init_weights
 
 torch.set_num_threads(1)
@@ -25,15 +29,21 @@ torch.set_num_threads(1)
 VOCAB = 30
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg, tcfg = cfg_pair()
+@functools.lru_cache(maxsize=None)
+def _setup(size: tuple[int, int]):
+    jcfg, tcfg = cfg_pair(resize_img=size)
     variables = jax_variables(jcfg, VOCAB, seed=0)
     return jcfg, tcfg, variables, port_model(tcfg, variables, VOCAB)
 
 
-def test_forward_matches_jax(setup):
-    jcfg, tcfg, variables, model = setup
+@pytest.fixture(scope="module")
+def setup():
+    return _setup((64, 64))
+
+
+@pytest.mark.parametrize("size,n_anchors", [((64, 64), 774), ((80, 80), 1251)], ids=["64", "80"])
+def test_forward_matches_jax(size, n_anchors):
+    jcfg, tcfg, variables, model = _setup(size)
     batch = random_batch(np.random.default_rng(7), 3, tcfg, VOCAB)
     batch["qlens"][:] = (1, 5, tcfg.max_qlen)
     want = JZSGNet(cfg=jcfg, vocab_size=VOCAB).apply(
@@ -41,7 +51,7 @@ def test_forward_matches_jax(setup):
     )
     with torch.no_grad():
         got = model(*(torch.from_numpy(batch[k]) for k in ("img", "qvec", "qlens")))
-    assert got["att_out"].shape == (3, 774) and got["bbx_out"].shape == (3, 774, 4)
+    assert got["att_out"].shape == (3, n_anchors) and got["bbx_out"].shape == (3, n_anchors, 4)
     assert got["feat_sizes"] == tuple(tuple(s) for s in want["feat_sizes"])
     np.testing.assert_allclose(got["att_out"].numpy(), np.asarray(want["att_out"]),
                                atol=5e-4, rtol=2e-3)
@@ -104,3 +114,26 @@ def test_init_weights_is_seeded_and_sets_the_focal_prior():
     assert not torch.equal(sa["head.conv0.weight"], sc["head.conv0.weight"])
     np.testing.assert_allclose(sa["head.out.bias"][0::5].numpy(), FOCAL_PRIOR_BIAS)
     assert float(sa["head.out.bias"][1::5].abs().max()) == 0.0
+
+
+def test_init_weights_folds_the_lstm_bias():
+    """The port's own init keeps bias_hh at 0 (its draw moved into bias_ih),
+    and fold_lstm_bias_ leaves the encoder's output as it was."""
+    _, tcfg = cfg_pair()
+    model = init_weights(ZSGNet(tcfg, VOCAB), seed=3)
+    for sfx in ("l0", "l0_reverse"):
+        assert float(getattr(model.lstm, f"bias_hh_{sfx}").abs().max()) == 0.0
+        assert float(getattr(model.lstm, f"bias_ih_{sfx}").detach().abs().max()) > 0.0
+    rng = np.random.default_rng(10)
+    emb, lstm = make_encoder(VOCAB, 8, 6)
+    qvec = torch.from_numpy(rng.integers(1, VOCAB, size=(4, 7)))
+    qlens = torch.tensor([1, 7, 3, 5])
+    with torch.no_grad():
+        for p in lstm.parameters():
+            p.copy_(torch.from_numpy(rng.uniform(-0.4, 0.4, p.shape).astype(np.float32)))
+        want = encode_query(emb, lstm, qvec, qlens)
+        sd = fold_lstm_bias_(lstm.state_dict(), prefix="")
+        assert float(sd["bias_hh_l0"].abs().max()) == 0.0
+        lstm.load_state_dict(sd)
+        got = encode_query(emb, lstm, qvec, qlens)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)  # float32, one add moved

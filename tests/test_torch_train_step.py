@@ -187,6 +187,38 @@ def test_optimizer_matches_optax(opt):
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-7)
 
 
+def test_adamw_decays_the_lstm_bias_as_optax():
+    """One AdamW step (lr 1e-2, weight_decay 0.1) on the port's own init
+    against optax's AdamW on the same weights carried to JAX by the JAX
+    package's converter, the same gradient reaching torch's ``bias_ih`` and
+    JAX's one bias: bias_ih + bias_hh equals JAX's bias within 1e-6
+    (float32; a bias_hh of 0.1 left in the sum would differ by lr·wd·0.1)."""
+    jcfg, tcfg = cfg_pair(lr=1e-2, weight_decay=0.1)
+    model = t_net(tcfg, VOCAB, seed=1, device="cpu")
+    variables = convert_zsgnet_checkpoint(model.state_dict(), head_conv_prefixes=HEAD,
+                                          num_anchors=tcfg.num_anchors)
+    qe = variables["params"]["query_enc"]
+    rng = np.random.default_rng(26)
+    dirs = {"fwd": "l0", "bwd": "l0_reverse"}
+    grads = {d: rng.normal(size=np.shape(qe[d]["bias"])).astype(np.float32) for d in dirs}
+
+    jparams = {d: jnp.asarray(qe[d]["bias"]) for d in dirs}
+    tx = jts.make_optimizer(jcfg)
+    upd, _ = tx.update({d: jnp.asarray(g) for d, g in grads.items()}, tx.init(jparams), jparams)
+    want = optax.apply_updates(jparams, upd)
+
+    lstm = model.lstm
+    for sfx in dirs.values():
+        assert float(getattr(lstm, f"bias_hh_{sfx}").abs().max()) == 0.0
+    state = tts.create_train_state(tcfg, model)
+    for d, sfx in dirs.items():
+        getattr(lstm, f"bias_ih_{sfx}").grad = _t(grads[d]).clone()
+    state.optimizer.step()
+    for d, sfx in dirs.items():
+        got = (getattr(lstm, f"bias_ih_{sfx}") + getattr(lstm, f"bias_hh_{sfx}")).detach().numpy()
+        np.testing.assert_allclose(got, np.asarray(want[d]), atol=1e-6, rtol=0)
+
+
 # -------------------------------------------------------------- the step
 
 CASES = {

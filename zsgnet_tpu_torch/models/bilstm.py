@@ -30,6 +30,19 @@ def make_encoder(vocab_size: int, emb_dim: int = 300, hidden: int = 256) -> tupl
     return nn.Embedding(vocab_size, emb_dim), lstm
 
 
+def fold_lstm_bias_(state_dict: dict[str, Tensor], prefix: str = "lstm.") -> dict[str, Tensor]:
+    """Move each direction's ``bias_hh`` into its ``bias_ih`` and zero it,
+    in place; returns ``state_dict``. The sum, and so the encoder's output,
+    is unchanged. With ``bias_hh`` at 0 the trainable ``bias_ih`` is the JAX
+    encoder's one bias, so AdamW decays the same tensor as optax does."""
+    for sfx in ("l0", "l0_reverse"):
+        hh, ih = f"{prefix}bias_hh_{sfx}", f"{prefix}bias_ih_{sfx}"
+        if hh in state_dict and ih in state_dict:
+            state_dict[ih] = state_dict[ih] + state_dict[hh]
+            state_dict[hh] = torch.zeros_like(state_dict[hh])
+    return state_dict
+
+
 def encode_query(embedding: nn.Embedding, lstm: nn.LSTM, qvec: Tensor, qlens: Tensor) -> Tensor:
     """qvec (B, T) int token ids (0 = pad), qlens (B,) int each ≥ 1 → (B, 2H)."""
     # pack_padded_sequence takes its lengths on the CPU.

@@ -141,6 +141,9 @@ def init_weights(model: ZSGNet, seed: int = 0) -> ZSGNet:
             k = 1.0 / math.sqrt(m.hidden_size)
             for p in m.parameters():
                 p.uniform_(-k, k, generator=g)
+            for sfx in ("l0", "l0_reverse"):  # the frozen bias_hh into bias_ih (fold_lstm_bias_)
+                getattr(m, f"bias_ih_{sfx}").add_(getattr(m, f"bias_hh_{sfx}"))
+                getattr(m, f"bias_hh_{sfx}").zero_()
     model.head.out.bias[0::5] = FOCAL_PRIOR_BIAS
     return model
 

@@ -28,6 +28,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -60,8 +61,19 @@ def _compile(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu``, compiling it first
-    if needed."""
+    if needed. Different names build concurrently from different threads."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(_compile(name)))
         return _libs[name]
+
+
+def load_all(names: list[str]) -> dict[str, ctypes.CDLL]:
+    """Build and load several kernel libraries, one nvcc for each, all
+    started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(load, names)))

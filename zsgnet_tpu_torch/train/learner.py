@@ -37,6 +37,7 @@ import torch
 
 from zsgnet_tpu_torch.config import Config
 from zsgnet_tpu_torch.data.dataset import DataWrap
+from zsgnet_tpu_torch.models.bilstm import fold_lstm_bias_
 from zsgnet_tpu_torch.models.zsgnet import anchor_pyramid_for, get_default_net
 from zsgnet_tpu_torch.parallel.train_step import (
     check_supported,
@@ -368,6 +369,7 @@ class Learner:
             if best.latest_step() is not None:
                 mngr = best
         restored = mngr.restore(step=step)
+        fold_lstm_bias_(restored["model"])  # checkpoints written before init folded bias_hh
         if strict:
             self.model.load_state_dict(restored["model"])
             if "optimizer" in restored:
