@@ -12,7 +12,8 @@ evaluation over the validation split, a ``Grounder`` answering 1 and then
 validation, checkpoints), then a reload, step timings and an overfit run,
 and last layer1 of the same model through the fused inference bottleneck
 (K3) against the eager layer1, with K3's timings from
-``zsgnet_tpu_torch.tools.bench_bottleneck``. Each path is driven with the kernels' launch counts set to 0 just before
+``zsgnet_tpu_torch.tools.bench_bottleneck`` (the Hopper kernel beside the
+``mma.sync`` kernel, same inputs, same run). Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after. Every phase is fatal on failure. The
 next-to-last line of standard output is a JSON object describing each
 kernel; the last is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -133,6 +134,12 @@ def check_fused_loss(anchors_cthw: np.ndarray) -> dict:
     plain_ms = cuda_ms(lambda: fl.fused_match_loss_reference(att, bbx, *anc, gt, w))
     kernels = device_kernels(call, 20)
     device_ms = sum(t for _, t, _ in kernels)
+    per_call = sum(n for *_, n in kernels)
+    if len(kernels) != 1 or per_call != 1:
+        raise AssertionError(f"K1 must be one kernel launch per call, the profile shows {kernels}")
+    again = fl.fused_match_loss(att, bbx, *anc, gt, w)
+    if not torch.equal(again, got):
+        raise AssertionError(f"K1 is not bit-identical on repeat: {again.tolist()} vs {got.tolist()}")
     n_bytes = b * a * (4 + 16) + a * 32 + b * (16 + 4) + 3 * 4
     bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
     ops_ms = b * a * K1_OPS_PER_ELEMENT / H100_F32_OPS_PER_S * 1e3
@@ -145,6 +152,7 @@ def check_fused_loss(anchors_cthw: np.ndarray) -> dict:
         "source": "zsgnet_tpu_torch/csrc/fused_loss.cu",
         "replaces": "zsgnet_tpu/ops/pallas/fused_loss.py:151",
         "launches": 0,
+        "kernel_launches_per_call": int(per_call),
         "max_abs_err": float((got_c - want_c).abs().max()),
         "ms": ms,
         "device_ms": device_ms,
@@ -331,29 +339,42 @@ def check_training(data_dir: str, run_dir: str) -> tuple[int, int]:
     return launches
 
 
-K3_SHAPES = {  # (B, H, W, Cin, Cmid, Cout, projection): the main path's two blocks and an odd one
-    "identity": (BATCH, 75, 75, 256, 64, 256, False),
-    "projection": (BATCH, 75, 75, 64, 64, 256, True),
-    "odd identity": (3, 11, 9, 16, 8, 16, False),
-    "odd projection": (3, 11, 9, 16, 8, 32, True),
+# (B, H, W, Cin, Cmid, Cout, projection, x dtype, kernel): the main path's two
+# blocks, layer1 widths with ragged tiles on both axes (and B = 1, and sides
+# under a tile), float32 x at layer1 width, and two odd small shapes.
+K3_SHAPES = {
+    "identity": (BATCH, 75, 75, 256, 64, 256, False, "bfloat16", "wgmma8x16"),
+    "projection": (BATCH, 75, 75, 64, 64, 256, True, "bfloat16", "wgmma8x16"),
+    "ragged identity": (1, 13, 21, 256, 64, 256, False, "bfloat16", "wgmma8x16"),
+    "ragged projection": (2, 9, 17, 64, 64, 256, True, "bfloat16", "wgmma8x16"),
+    "small identity": (1, 5, 3, 256, 64, 256, False, "bfloat16", "wgmma8x16"),
+    "float32 identity": (2, 19, 23, 256, 64, 256, False, "float32", "wgmma8x16"),
+    "float32 projection": (2, 19, 23, 64, 64, 256, True, "float32", "wgmma8x16"),
+    "odd identity": (3, 11, 9, 16, 8, 16, False, "bfloat16", "mma"),
+    "odd projection": (3, 11, 9, 16, 8, 32, True, "bfloat16", "mma"),
 }
 
 
 def check_bottleneck_kernel() -> float:
-    """Phase 7a: K3 against its plain version in bf16 at layer1's identity
-    and projection blocks and at an odd small shape (atol/rtol 2e-2, the JAX
-    test's), bit-identical on repeat. Returns the identity block's max abs
-    error."""
+    """Phase 7a: K3 against its plain version at layer1's identity and
+    projection blocks, at layer1 widths with ragged tiles, in float32, and
+    at odd small shapes (atol/rtol 2e-2, the JAX test's), bit-identical on
+    repeat; each shape must go to the kernel its widths select, and at
+    layer1 widths the two kernels of the source must agree with each other
+    within the same tolerance. Returns the identity block's max abs error."""
     from zsgnet_tpu_torch.ops.cuda.fused_bottleneck import (
-        bottleneck_infer_reference, fused_bottleneck_infer,
+        bottleneck_infer_reference, fused_bottleneck_infer, kernel_for, launch_variant,
     )
     from zsgnet_tpu_torch.tools.bench_bottleneck import random_args
 
     errors = {}
-    for i, (name, (b, h, w, cin, cmid, cout, proj)) in enumerate(K3_SHAPES.items()):
+    for i, (name, (b, h, w, cin, cmid, cout, proj, dtype, kernel)) in enumerate(K3_SHAPES.items()):
         rng = np.random.default_rng(SEED + 10 + i)
-        x = torch.from_numpy(rng.normal(size=(b, h, w, cin)).astype(np.float32)).cuda().bfloat16()
+        x = torch.from_numpy(rng.normal(size=(b, h, w, cin)).astype(np.float32)).cuda().to(getattr(torch, dtype))
         args = random_args(rng, cin, cmid, cout, proj, "cuda")
+        took = kernel_for(cin, cmid, cout, proj)
+        if took != kernel:
+            raise AssertionError(f"K3 {name}: widths {cin}, {cmid}, {cout} select kernel {took}, expected {kernel}")
         got = fused_bottleneck_infer(x, **args)
         again = fused_bottleneck_infer(x, **args)
         want = bottleneck_infer_reference(x, **args)
@@ -361,18 +382,29 @@ def check_bottleneck_kernel() -> float:
         if not torch.equal(got, again):
             raise AssertionError(f"K3 {name}: two calls on the same input differ")
         errors[name] = float((got.float() - want.float()).abs().max())
-        if not torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2):
+        if got.dtype != x.dtype or not torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2):
             raise AssertionError(f"K3 {name} {list(x.shape)} -> {cout}: max abs error {errors[name]} "
                                  "against its plain version (atol/rtol 2e-2)")
-    log(f"K3 vs plain (bf16, atol/rtol 2e-2, bit-identical on repeat): max abs errors {errors}")
+        if kernel != "mma":
+            for other in ("mma", "wgmma8x8"):
+                alt = launch_variant(other, x, **args)
+                if not torch.allclose(alt.float(), got.float(), atol=2e-2, rtol=2e-2):
+                    raise AssertionError(f"K3 {name}: the {other} kernel and the {kernel} kernel disagree by "
+                                         f"{float((alt.float() - got.float()).abs().max())}")
+        log(f"K3 {name} {list(x.shape)} {dtype} -> {cout}: kernel {took}, max abs error {errors[name]}")
+    log("K3 vs plain (atol/rtol 2e-2, bit-identical on repeat, kernels agree at layer1 widths): passed "
+        f"{len(errors)} shapes")
     return errors["identity"]
 
 
-def check_layer1() -> int:
+def check_layer1() -> tuple[int, int]:
     """Phase 7b, this slice's path: layer1 of the full-width model (BatchNorm
     statistics drawn from U(0.6, 1.4)) through ``block_args`` and three K3
     launches, against the eager layer1 in eval mode under bf16 autocast, on
-    the stem's output of a synthetic batch. Returns K3's launches."""
+    the stem's output of a synthetic batch, twice: the first pass also packs
+    each block's weights for the Hopper kernel (one packing launch a block),
+    the second finds them packed. Returns K3's launches in the second pass
+    and the packing launches of the first."""
     from zsgnet_tpu_torch.config import get_default_cfg
     from zsgnet_tpu_torch.models.zsgnet import get_default_net
     from zsgnet_tpu_torch.ops.cuda.fused_bottleneck import block_args, fused_bottleneck_infer
@@ -393,14 +425,20 @@ def check_layer1() -> int:
             want = enc.layer1(stem).permute(0, 2, 3, 1)
         args = [block_args(block) for block in enc.layer1]
         h = stem.permute(0, 2, 3, 1).contiguous()
-        fused_bottleneck_infer.launches = 0
-        for a in args:
-            h = fused_bottleneck_infer(h, **a)
-        torch.cuda.synchronize()
-        launches = fused_bottleneck_infer.launches
+        h0 = h
+        for attempt in range(2):
+            fused_bottleneck_infer.launches = fused_bottleneck_infer.pack_launches = 0
+            h = h0
+            for a in args:
+                h = fused_bottleneck_infer(h, **a)
+            torch.cuda.synchronize()
+            if attempt == 0:
+                pack_launches = fused_bottleneck_infer.pack_launches
+        launches, repacked = fused_bottleneck_infer.launches, fused_bottleneck_infer.pack_launches
     diff = float((h.float() - want.float()).abs().max())
     scale = float(want.float().abs().max())
-    log(f"layer1 {list(stem.shape)} NCHW -> {list(h.shape)} NHWC through {launches} K3 launches vs "
+    log(f"layer1 {list(stem.shape)} NCHW -> {list(h.shape)} NHWC through {launches} K3 launches "
+        f"({pack_launches} weight-packing launches on first sight, {repacked} after) vs "
         f"the eager layer1 (bf16 autocast): max abs diff {diff:.4f}, scale {scale:.4f}, "
         f"relative {diff / max(scale, 1e-6):.5f}")
     if h.dtype != torch.bfloat16 or tuple(h.shape) != (BATCH, 75, 75, 256) or not torch.isfinite(h).all():
@@ -409,7 +447,10 @@ def check_layer1() -> int:
         raise AssertionError(f"layer1 through K3 differs from the eager layer1 by {diff} of {scale}")
     if launches != 3:
         raise AssertionError(f"layer1 launched K3 {launches} times, expected 3")
-    return launches
+    if (pack_launches, repacked) != (3, 0):
+        raise AssertionError(f"layer1 packed weights {pack_launches} times in its first pass and {repacked} "
+                             "in its second, expected 3 and 0")
+    return launches, pack_launches
 
 
 def bottleneck_timings() -> dict:
@@ -422,11 +463,21 @@ def bottleneck_timings() -> dict:
         bytes_ms = r["bytes"] / H100_BYTES_PER_S * 1e3
         ops_ms = r["flops"] / H100_BF16_OPS_PER_S * 1e3
         r["bound_ms"], r["bound_by"] = max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
-        log(f"K3 {name} {r['shape']} -> {r['cout']}: {r['k3_ms']:.4f} ms per call "
-            f"({'chained' if r['chained'] else 'repeated'}), plain {r['plain_ms']:.4f} ms, eager cuDNN "
-            f"NCHW {r['eager_nchw_ms']:.4f} ms, channels_last {r['eager_channels_last_ms']:.4f} ms; "
+        log(f"K3 {name} {r['shape']} -> {r['cout']}: kernel {r['k3_kernel']}, on the card "
+            f"{r['k3_device_ms']:.4f} ms per launch, {r['k3_ms']:.4f} ms per call back to back "
+            f"({'chained' if r['chained'] else 'repeated'}); side by side on the card: mma.sync "
+            f"{r['k3_mma_device_ms']:.4f} ms, wgmma 8x8 {r['k3_wgmma8x8_device_ms']:.4f} ms, wgmma 8x16 "
+            f"{r['k3_wgmma8x16_device_ms']:.4f} ms (mma.sync / selected "
+            f"{r['k3_mma_device_ms'] / r['k3_device_ms']:.2f}x); back to back: mma.sync {r['k3_mma_ms']:.4f} ms, "
+            f"wgmma 8x8 {r['k3_wgmma8x8_ms']:.4f} ms, wgmma 8x16 {r['k3_wgmma8x16_ms']:.4f} ms; weight "
+            f"prologue alone {r['prologue_device_ms']:.4f} ms on the card; plain {r['plain_ms']:.4f} ms, eager "
+            f"cuDNN NCHW {r['eager_nchw_ms']:.4f} ms, channels_last {r['eager_channels_last_ms']:.4f} ms; "
             f"bound {r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} ({r['bytes'] / 1e6:.2f} MB, "
-            f"{r['flops'] / 1e9:.2f} GFLOP); rel diff {r['rel_diff']:.5f}, eager {r['eager_rel_diff']:.5f}")
+            f"{r['flops'] / 1e9:.2f} GFLOP), {r['bound_ms'] / r['k3_device_ms']:.1%} of it reached; "
+            f"rel diff {r['rel_diff']:.5f}, eager {r['eager_rel_diff']:.5f}")
+        if not r["k3_device_ms"] < r["k3_mma_device_ms"]:
+            raise AssertionError(f"K3 {name}: the selected kernel ({r['k3_device_ms']} ms on the card) is not "
+                                 f"faster than the mma.sync kernel ({r['k3_mma_device_ms']} ms) in the same run")
     return runs
 
 
@@ -437,18 +488,21 @@ def check_bottleneck() -> dict:
     from zsgnet_tpu_torch.tools.bench_bottleneck import random_args
 
     err = check_bottleneck_kernel()
-    launches = check_layer1()
+    launches, pack_launches = check_layer1()
     runs = bottleneck_timings()
-    b, h, w, cin, cmid, cout, proj = K3_SHAPES["identity"]
+    b, h, w, cin, cmid, cout, proj = K3_SHAPES["identity"][:7]
     rng = np.random.default_rng(SEED)
     x = torch.from_numpy(rng.normal(size=(b, h, w, cin)).astype(np.float32)).cuda().bfloat16()
     args = random_args(rng, cin, cmid, cout, proj, "cuda")
     kernels = device_kernels(lambda: fused_bottleneck_infer(x, **args), 20)
     # Per launch of its one kernel: the profiler may record fewer launches than were made.
     device_ms = sum(t / n for _, t, n in kernels)
+    if len(kernels) != 1:
+        raise AssertionError(f"K3 must be one kernel per call once its weights are packed: {kernels}")
     log(f"K3 identity device time {device_ms:.4f} ms per launch "
         f"({[(k[:60], round(t, 5), n) for k, t, n in kernels]}: name, ms and launches per call)")
     r = runs["identity"]
+    route = min(("eager_nchw_ms", "eager_channels_last_ms"), key=lambda k: r[k])
     return {
         "name": "fused_bottleneck_infer",
         "route": "cuda",
@@ -461,7 +515,16 @@ def check_bottleneck() -> dict:
         "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"],
-        "library_ms": r["eager_nchw_ms"],
+        "library_ms": r[route],
+        "library_route": {"eager_nchw_ms": "eager Bottleneck, cuDNN, bf16 autocast, NCHW",
+                          "eager_channels_last_ms": "eager Bottleneck, cuDNN, bf16 autocast, channels_last"}[route],
+        "kernel": r["k3_kernel"],
+        "k3_mma_ms": r["k3_mma_ms"],
+        "k3_mma_device_ms": r["k3_mma_device_ms"],
+        "k3_wgmma8x8_device_ms": r["k3_wgmma8x8_device_ms"],
+        "k3_wgmma8x16_device_ms": r["k3_wgmma8x16_device_ms"],
+        "prologue_device_ms": r["prologue_device_ms"],
+        "pack_launches": pack_launches,
     }
 
 
@@ -469,6 +532,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -589,6 +653,7 @@ def main() -> int:
 
     # Phase 7: K3, this slice's path.
     k3 = check_bottleneck()
+    log(f"every phase passed in {time.perf_counter() - t_start:.1f} s, the kernels' build included")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)

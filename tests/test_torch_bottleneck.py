@@ -207,3 +207,62 @@ def test_bench_eager_block_is_the_same_function(proj):
                                                             "w3", "s3", "b3", "wd", "sd", "bd")},
                               rnd=lambda t: t)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-5)
+
+
+# ResNet-50 layer1 widths (Cmid 64, Cout 256) at sides that leave ragged
+# tiles on both axes of the Hopper kernel's 8 x 16 tiling, a batch of 1 and
+# sides under one tile: the shapes the CUDA tests and chip_smoke.py hold the
+# kernel to, here the plain version against the JAX reference.
+LAYER1_RAGGED = {
+    "identity-1x13x21": (1, 13, 21, 256, False),
+    "projection-2x9x17": (2, 9, 17, 64, True),
+    "identity-1x5x3": (1, 5, 3, 256, False),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(LAYER1_RAGGED))
+def test_plain_version_matches_jax_reference_at_ragged_layer1_widths(name, dtype):
+    # atol/rtol 2e-2, as tests/test_pallas_bottleneck.py (bf16 rounding of h1/h2).
+    b, h, w, cin, proj = LAYER1_RAGGED[name]
+    x, args = _mk(10, B=b, H=h, W=w, Cin=cin, Cmid=64, Cout=256, proj=proj)
+    tx, targs = _torch(x, args, getattr(torch, dtype))
+    jx, jargs = _jax(x, args, getattr(jnp, dtype))
+    got = fb.fused_bottleneck_infer(tx, **targs)  # the wrapper: the plain version on the CPU
+    want = jfb.bottleneck_infer_reference(jx, **jargs)
+    assert got.dtype == tx.dtype and tuple(got.shape) == (b, h, w, 256)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-2, rtol=2e-2)
+
+
+def _layout_case(kind):
+    """x of ResNet-50 layer1 width that the kernels' copies and tensor map
+    cannot address, built on the CPU (the check reads only the tensor's
+    address and strides)."""
+    n = 2 * 5 * 7 * 64
+    if kind == "misaligned-bf16":  # 2 bytes past a 16-byte boundary
+        return torch.zeros(n + 8, dtype=torch.bfloat16)[1:n + 1].view(2, 5, 7, 64)
+    if kind == "misaligned-float32":  # 4 bytes past
+        return torch.zeros(n + 4, dtype=torch.float32)[1:n + 1].view(2, 5, 7, 64)
+    if kind == "channel-stride":  # every other channel of a wider tensor
+        return torch.zeros(2, 5, 7, 128, dtype=torch.bfloat16)[..., ::2]
+    if kind == "pixel-stride":  # 64 of 68 channels kept: a pixel stride of 136 bytes
+        return torch.zeros(2, 5, 7, 68, dtype=torch.bfloat16)[..., :64]
+    raise AssertionError(kind)
+
+
+@pytest.mark.parametrize("kind,match", [
+    ("misaligned-bf16", "16-byte aligned"),
+    ("misaligned-float32", "16-byte aligned"),
+    ("channel-stride", "channels must be contiguous"),
+    ("pixel-stride", "multiple of 16 bytes"),
+])
+def test_kernel_layout_check_raises(kind, match):
+    x = _layout_case(kind)
+    with pytest.raises(ValueError, match=match):
+        fb._check_kernel_layout(x, 64, 64, 256)
+
+
+def test_kernel_layout_check_passes_a_fresh_tensor():
+    fb._check_kernel_layout(torch.zeros(2, 5, 7, 64, dtype=torch.bfloat16), 64, 64, 256)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fb._check_kernel_layout(torch.zeros(2, 5, 7, 24), 24, 8, 32)

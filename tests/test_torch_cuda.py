@@ -4,9 +4,12 @@ Marked ``cuda``; without a CUDA device each test skips with that reason.
 On the GPU machine run them with ``python -m pytest tests/test_torch_cuda.py``.
 Each kernel is held against its plain PyTorch version on the same card.
 K1: ``num_pos`` exact, the two sums to rtol 1e-4 (float32 sums in another
-order), the argmax anchors exact. K2: atol 1e-6 on gradients of order 1
+order), the argmax anchors exact, one kernel launch per call,
+bit-identical on repeat. K2: atol 1e-6 on gradients of order 1
 (elementwise float32; exp and pow round differently from torch's). K3:
-atol/rtol 2e-2 (below), bit-identical on repeat.
+atol/rtol 2e-2 (below), bit-identical on repeat, for the Hopper (wgmma)
+kernel at ResNet-50 layer1 widths and the mma.sync kernel elsewhere, and
+the two against each other.
 """
 
 import numpy as np
@@ -137,6 +140,89 @@ def test_backward_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         fl.fused_match_loss_backward(att, bbx, *anc, gt, w, best, grad[:2])
 
 
+def _case(dev, b, a, seed=0):
+    """tests/_torch_port.k1_promotion_case on the card → (att, bbx, anchors, gt, w, best)."""
+    from _torch_port import k1_promotion_case
+
+    c = k1_promotion_case(b, a, seed)
+    att, bbx, gt, w = (torch.from_numpy(c[k]).to(dev) for k in ("att", "bbx", "gt", "w"))
+    return att, bbx, fl.pack_anchors(c["anchors_cthw"], dev), gt, w, torch.from_numpy(c["best"]).int().to(dev)
+
+
+# B = 1 and B = 17; A not a multiple of 8 x 512 and A = 8 x 512; rows whose
+# best anchor is under match_thr in a later share of the row's cluster, equal
+# maxima in two shares, zero-extent boxes and zero-weight rows are in every case.
+@pytest.mark.parametrize("b,a", [(1, 5003), (4, 4096), (17, 5003), (16, 17451), (36, 811)])
+def test_kernel_promotes_the_first_argmax_anchor(cuda, b, a):
+    att, bbx, anc, gt, w, best = _case(cuda, b, a, seed=b)
+    got, got_best = fl._launch_fwd(att, bbx, *anc, gt, w, 0.5, 0.4, 0.25, 2.0)
+    want = fl.fused_match_loss_reference(att, bbx, *anc, gt, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got_best, best)  # the lower index of a tie, whichever share holds it
+    assert float(got[2]) == float(want[2])
+    torch.testing.assert_close(got[:2], want[:2], rtol=1e-4, atol=0.0)
+    # Row 0: one positive, under match_thr, outside the first share.
+    share = -(-a // 8)
+    assert int(best[0]) >= share
+    row0 = fl.fused_match_loss(att[:1], bbx[:1], *anc, gt[:1], torch.ones(1, device=cuda))
+    assert float(row0[2]) == 1.0
+
+
+def test_kernel_zero_weight_rows_add_nothing(cuda):
+    att, bbx, anc, gt, w, _ = _case(cuda, 10, 5003)
+    keep = w > 0
+    assert int((~keep).sum()) == 2
+    full = fl.fused_match_loss(att, bbx, *anc, gt, w)
+    kept = fl.fused_match_loss(att[keep].contiguous(), bbx[keep].contiguous(), *anc,
+                               gt[keep].contiguous(), w[keep].contiguous())
+    assert float(full[2]) == float(kept[2])
+    torch.testing.assert_close(full, kept, rtol=1e-6, atol=0.0)  # the same terms, summed over fewer rows
+
+
+def test_kernel_two_calls_in_a_row_give_identical_bits(cuda):
+    """The ticket that picks the cluster summing the rows returns to 0 after
+    every call; a stale one would leave ``out`` unwritten or sum too early."""
+    att, bbx, anc, gt, w, _ = _case(cuda, 17, 5003)
+    first = fl.fused_match_loss(att, bbx, *anc, gt, w).clone()
+    second = fl.fused_match_loss(att, bbx, *anc, gt, w).clone()
+    other = fl.fused_match_loss(att[:3].contiguous(), bbx[:3].contiguous(), *anc, gt[:3].contiguous(),
+                                w[:3].contiguous())  # another batch size in between
+    third = fl.fused_match_loss(att, bbx, *anc, gt, w)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, third)
+    assert torch.isfinite(other).all()
+    ticket = fl._ticket(att.device, torch.cuda.current_stream().cuda_stream)
+    assert int(ticket) == 0
+
+
+def test_kernel_long_share_path(cuda):
+    """A 600² pyramid has 67995 anchors: a share of 8500, over the 8192 IoUs a
+    block keeps, so the second pass computes them again."""
+    att, bbx, anc, gt, w = _inputs(cuda, 2, (600, 600), seed=4)
+    assert att.shape[1] > 8 * 8192
+    got, best = fl._launch_fwd(att, bbx, *anc, gt, w, 0.5, 0.4, 0.25, 2.0)
+    want = fl.fused_match_loss_reference(att, bbx, *anc, gt, w)
+    assert torch.equal(best, _best_plain(anc, gt))
+    assert float(got[2]) == float(want[2])
+    torch.testing.assert_close(got[:2], want[:2], rtol=1e-4, atol=0.0)
+    assert torch.equal(fl._launch_fwd(att, bbx, *anc, gt, w, 0.5, 0.4, 0.25, 2.0)[0], got)
+
+
+def test_kernel_is_one_launch_per_call(cuda):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    att, bbx, anc, gt, w = _inputs(cuda, 16)
+    fl.fused_match_loss(att, bbx, *anc, gt, w)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fl.fused_match_loss(att, bbx, *anc, gt, w)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and kernels[0][1] == 5, kernels
+
+
 # ------------------------------------------------------------------ K3
 # K3 against its plain version in the working type bf16 (and float32 at the
 # small shape): atol/rtol 2e-2, the JAX test's tolerance (bf16 rounding of
@@ -147,7 +233,25 @@ K3_SHAPES = {
     "layer1-projection": (16, 75, 75, 64, 64, 256, True),
     "odd-identity": (3, 11, 9, 16, 8, 16, False),
     "odd-projection": (3, 11, 9, 16, 8, 32, True),
+    # layer1 widths: ragged tiles on both axes with B = 1, sides under a tile, one pixel
+    "ragged-identity": (1, 13, 21, 256, 64, 256, False),
+    "ragged-projection": (2, 9, 17, 64, 64, 256, True),
+    "small-identity": (1, 5, 3, 256, 64, 256, False),
+    "small-projection": (3, 3, 20, 64, 64, 256, True),
+    "pixel-identity": (2, 1, 1, 256, 64, 256, False),
+    # widths the Hopper kernel takes besides layer1's, and some it leaves to mma.sync
+    "narrow64-identity": (2, 10, 19, 64, 64, 64, False),
+    "wide128-identity": (2, 10, 19, 128, 64, 128, False),
+    "wide192-identity": (1, 17, 33, 192, 64, 192, False),
+    "projection-to-128": (2, 10, 19, 64, 64, 128, True),
+    "cmid32-identity": (2, 10, 19, 64, 32, 64, False),
+    "projection-from-128": (2, 10, 19, 128, 64, 128, True),
 }
+K3_KERNEL = {name: "mma" for name in K3_SHAPES} | {
+    name: "wgmma8x16" for name in (
+        "layer1-identity", "layer1-projection", "ragged-identity", "ragged-projection", "small-identity",
+        "small-projection", "pixel-identity", "narrow64-identity", "wide128-identity", "wide192-identity",
+        "projection-to-128")}
 
 
 def _k3_inputs(dev, shape, dtype=torch.bfloat16, seed=0):
@@ -169,6 +273,8 @@ def test_bottleneck_kernel_matches_plain_version(cuda, name):
     assert fb.fused_bottleneck_infer.launches == launches + 1
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    b, h, w, cin, cmid, cout, proj = K3_SHAPES[name]
+    assert fb.kernel_for(cin, cmid, cout, proj) == K3_KERNEL[name]  # chosen by the widths alone
 
 
 @pytest.mark.parametrize("proj", [False, True], ids=["identity", "projection"])
@@ -181,11 +287,62 @@ def test_bottleneck_kernel_in_float32(cuda, proj):
     torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
 
 
-def test_bottleneck_kernel_is_deterministic(cuda):
-    x, args = _k3_inputs(cuda, K3_SHAPES["layer1-identity"], seed=2)
+@pytest.mark.parametrize("name", ["layer1-identity", "layer1-projection", "ragged-identity"])
+def test_bottleneck_kernel_is_deterministic(cuda, name):
+    x, args = _k3_inputs(cuda, K3_SHAPES[name], seed=2)
     first = fb.fused_bottleneck_infer(x, **args)
     for _ in range(2):
         assert torch.equal(fb.fused_bottleneck_infer(x, **args), first)
+
+
+@pytest.mark.parametrize("name", ["ragged-identity", "ragged-projection", "small-identity"])
+def test_bottleneck_hopper_kernel_in_float32(cuda, name):
+    # float32 x at layer1 width: converted on the way into shared memory, the
+    # residual and the output in float32.
+    x, args = _k3_inputs(cuda, K3_SHAPES[name], torch.float32, seed=3)
+    got = fb.fused_bottleneck_infer(x, **args)
+    want = fb.bottleneck_infer_reference(x, **args)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    assert torch.equal(fb.fused_bottleneck_infer(x, **args), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bfloat16", "float32"])
+@pytest.mark.parametrize("name", ["layer1-identity", "layer1-projection", "ragged-identity",
+                                  "ragged-projection"])
+def test_bottleneck_kernels_agree_at_layer1_width(cuda, name, dtype):
+    """The source's kernels, forced one after the other on the same input:
+    the mma.sync kernel and the Hopper kernel with 8 x 8 and 8 x 16 tiles agree
+    within the bf16 tolerance (their float32 sums run in other orders)."""
+    x, args = _k3_inputs(cuda, K3_SHAPES[name], dtype, seed=4)
+    launches = fb.fused_bottleneck_infer.launches
+    outs = {v: fb.launch_variant(v, x, **args) for v in ("mma", "wgmma8x8", "wgmma8x16")}
+    torch.cuda.synchronize()
+    assert fb.fused_bottleneck_infer.launches == launches  # counted only through fused_bottleneck_infer
+    for v in ("wgmma8x8", "wgmma8x16"):
+        torch.testing.assert_close(outs[v].float(), outs["mma"].float(), atol=2e-2, rtol=2e-2)
+
+
+def test_bottleneck_forced_kernel_refuses_other_widths(cuda):
+    x, args = _k3_inputs(cuda, K3_SHAPES["odd-identity"])
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fb.launch_variant("wgmma8x16", x, **args)
+
+
+def test_bottleneck_weights_are_packed_once(cuda):
+    """The Hopper kernel's packed weights are made by one launch the first
+    time a set of weights is seen, and again after an in-place update."""
+    x, args = _k3_inputs(cuda, K3_SHAPES["ragged-identity"], seed=5)
+    packs = fb.fused_bottleneck_infer.pack_launches
+    first = fb.fused_bottleneck_infer(x, **args)
+    fb.fused_bottleneck_infer(x, **args)
+    assert fb.fused_bottleneck_infer.pack_launches == packs + 1
+    args["w3"].mul_(2.0)
+    changed = fb.fused_bottleneck_infer(x, **args)
+    assert fb.fused_bottleneck_infer.pack_launches == packs + 2
+    torch.testing.assert_close(changed.float(), fb.bottleneck_infer_reference(x, **args).float(),
+                               atol=2e-2, rtol=2e-2)
+    assert not torch.equal(changed, first)
 
 
 def test_bottleneck_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -200,3 +357,7 @@ def test_bottleneck_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         fb.fused_bottleneck_infer(x.half(), **args)
     with pytest.raises(ValueError, match="is on"):
         fb.fused_bottleneck_infer(x, **{**args, "w1": args["w1"].cpu()})
+    wide, wide_args = _k3_inputs(cuda, K3_SHAPES["ragged-projection"])
+    flat = torch.zeros(wide.numel() + 8, dtype=wide.dtype, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):  # 2 bytes past a boundary: no tensor map
+        fb.fused_bottleneck_infer(flat[1:wide.numel() + 1].view(wide.shape), **wide_args)

@@ -159,3 +159,49 @@ def test_fused_loss_force_best_tie_break():
     assert float(sums[2]) == 1.0
     j_labels, _ = j_anchors.match_and_encode(jnp.asarray(anchors), jnp.asarray(gt))
     assert np.flatnonzero(np.asarray(j_labels)[0] == 1).tolist() == [0]
+
+
+@pytest.mark.parametrize("a", [2051, 5003], ids=["A2051", "A5003"])
+def test_fused_loss_promotion_and_ties_match_jax(a):
+    """Rows whose positives hang on the argmax anchor (a best anchor under
+    match_thr in a later eighth of the anchors, equal maxima in two eighths,
+    a zero-extent box, zero-weight rows; tests/_torch_port.k1_promotion_case,
+    which the CUDA tests of K1 share): the plain version finds the anchors
+    the case was built to have and agrees with the JAX Pallas kernel in
+    interpret mode (num_pos exact, the sums to rtol 1e-5: float32 sums in
+    another order)."""
+    from _torch_port import k1_promotion_case
+
+    case = k1_promotion_case(8, a, seed=a)
+    anchors, att, bbx, gt, w = (case[k] for k in ("anchors_cthw", "att", "bbx", "gt", "w"))
+    packed = t_fused.pack_anchors(anchors, "cpu")
+    iou = t_boxes.iou_pairwise(_t(gt)[:, None, :], packed[0])[:, 0, :]
+    assert iou.argmax(dim=-1).tolist() == case["best"].tolist()
+    assert float(iou[0].max()) < 0.5 and float(iou[1].max()) < 0.5  # positives by promotion only
+    with pltpu.force_tpu_interpret_mode():
+        want = j_fused(jnp.asarray(att), jnp.asarray(bbx), jnp.asarray(j_pack(anchors)), jnp.asarray(gt),
+                       num_anchors=a, sample_weight=jnp.asarray(w))
+    sums = t_fused.fused_match_loss(_t(att), _t(bbx), *packed, _t(gt), _t(w))
+    assert float(sums[2]) == float(want["num_pos"])
+    # Rows 0, 1 and 2 have exactly one positive, the promoted anchor; row 3's planted anchor is over match_thr.
+    per_row = [float(t_fused.fused_match_loss(_t(att[r:r + 1]), _t(bbx[r:r + 1]), *packed, _t(gt[r:r + 1]),
+                                              torch.ones(1))[2]) for r in range(4)]
+    assert per_row[:3] == [1.0, 1.0, 1.0] and per_row[3] >= 1.0
+    num_pos = max(float(sums[2]), 1.0)
+    np.testing.assert_allclose(float(sums[0]) / num_pos, float(want["cls_ls"]), rtol=1e-5)
+    np.testing.assert_allclose(float(sums[1]) / num_pos, float(want["box_ls"]), rtol=1e-5)
+
+
+def test_fused_loss_zero_weight_rows_add_nothing():
+    """Rows of weight 0 leave the three sums untouched (the case's rows 4, 9, ...)."""
+    from _torch_port import k1_promotion_case
+
+    case = k1_promotion_case(10, 2051, seed=1)
+    packed = t_fused.pack_anchors(case["anchors_cthw"], "cpu")
+    keep = case["w"] > 0
+    assert (~keep).sum() == 2
+    full = t_fused.fused_match_loss(_t(case["att"]), _t(case["bbx"]), *packed, _t(case["gt"]), _t(case["w"]))
+    kept = t_fused.fused_match_loss(_t(case["att"][keep]), _t(case["bbx"][keep]), *packed,
+                                    _t(case["gt"][keep]), _t(case["w"][keep]))
+    assert float(full[2]) == float(kept[2])
+    np.testing.assert_allclose(full.numpy(), kept.numpy(), rtol=1e-6)  # float32 sums over fewer rows

@@ -15,14 +15,22 @@
 // (B, 4) f32, w (B,) f32. There is no 512-lane padding and no batch-tile
 // requirement: the grid's ragged edge is masked by index.
 //
-// Three launches on one stream over a (anchor chunk, row) grid:
-// chunk_best_anchor finds each chunk's largest IoU; match_loss_partials
-// merges a row's chunk candidates into the row's argmax-IoU anchor (the
-// first of tied maxima, as jnp.argmax and torch.argmax; in the JAX package
-// this prologue is XLA outside the Pallas kernel) and computes the loss
-// partials; sum_partials adds them up. match_loss_partials also writes each
-// row's argmax anchor to best_out, the residual K2 reads instead of
-// searching again (the JAX VJP saves it in its aux array).
+// K1 is one launch of one thread-block cluster per row: the cluster's 8
+// blocks (the portable maximum; 16 rows x 8 = 128 blocks on the H100's 132
+// SMs at B = 16) split the row's anchors into 8 contiguous shares. Each
+// block computes every IoU of its share once, keeps them in shared memory
+// and reduces its (largest IoU, first index). The
+// blocks exchange the 8 candidates through distributed shared memory, each
+// merges them in rank order into the row's argmax-IoU anchor (the first of
+// tied maxima, as jnp.argmax and torch.argmax; in the JAX package this
+// prologue is XLA outside the Pallas kernel), then finishes labels, focal
+// loss, targets and smooth-L1 from what it kept. Rank 0 adds the cluster's
+// 8 partial triples in rank order into partials[row] and writes the row's
+// argmax anchor to best_out, the residual K2 reads instead of searching
+// again (the JAX VJP saves it in its aux array). The last cluster to
+// finish, found with an integer ticket, adds partials[0..B) in row order
+// into out. A share longer than kKeepMax anchors (rows of more than 65536
+// anchors) is not kept: the second pass computes its IoUs again.
 //
 // K2 replaces fused_loss.py::_bwd_kernel (launched by _vjp_bwd). It is
 // elementwise over a (anchor block, row) grid, one thread per anchor: it
@@ -37,32 +45,46 @@
 // at 3.35 TB/s; its arithmetic is a few dozen float operations per anchor.
 //
 // K1's bound: each input is read once and three floats are written, so the
-// function moves B·A·20 + A·32 bytes (6.1 MB at B = 16, A = 17451): under
-// 2 us at the H100's 3.35 TB/s (the argmax pass re-reads the 0.3 MB of
-// tlbr anchors per row from L2). Per (row, anchor) it does a few dozen
+// function moves B*A*20 + A*32 bytes (6.1 MB at B = 16, A = 17451): under
+// 2 us at the H100's 3.35 TB/s. Per (row, anchor) it does a few dozen
 // float operations and four transcendentals, far below the byte bound, so
-// in practice launch latency and the bytes bound it. The design streams
-// each input once with coalesced 16-byte loads and keeps every
-// intermediate (IoU, labels, targets) in registers.
+// in practice the latency of one launch and of its dependent steps (load,
+// cluster exchange, ticket) and the arithmetic of the loss itself (IEEE
+// divisions, exp, log1p, log: the loops are kept rolled, because unrolled
+// over a thread's anchors the code outgrew the instruction cache and ran
+// twice as long) bound it. The design reads each input once with coalesced
+// 16-byte loads, computes each IoU once, and pays for the box targets'
+// logarithms and divisions only at the few positive anchors.
 //
 // Reduction: deterministic, no float atomics. The TPU kernel carries the
 // sum across sequential grid steps; Hopper blocks run in no order, so each
-// block of the (anchor chunk, row) grid reduces its threads' partials with
-// warp shuffles and shared memory into partials[(row, chunk), 3], and a
-// second one-block kernel sums the partials in a fixed order.
+// block reduces its threads' partials with warp shuffles and shared memory,
+// rank 0 adds the 8 blocks' triples in rank order, and the last cluster
+// adds the rows in row order. The integer ticket (atomicAdd on a counter
+// that the wrapper keeps per device and stream) decides only which cluster
+// does that last sum, never the order of a float addition, so the result is
+// bit-identical from call to call. The counter returns to 0 at the end of
+// every call; two streams must not share one, because two calls in flight
+// would draw from the same sequence of tickets and neither, or the wrong
+// one, would see the last.
 //
 // Build: nvcc compiles this file's plain C interface into a shared library
 // that zsgnet_tpu_torch/ops/cuda/build.py loads with ctypes. Compiled with -fmad=false so the IoU
 // and target arithmetic rounds like the plain PyTorch version, which
 // matters only at label thresholds.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kChunk = 1024;  // anchors per block: 4 per thread
-constexpr int kWarps = kThreads / 32;
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = 256;     // K2: one thread per anchor
+constexpr int kRowThreads = 512;  // K1: threads of a block of a row's cluster (256 and 1024 were slower)
+constexpr int kRowWarps = kRowThreads / 32;
+constexpr int kCluster = 8;   // blocks per row: the portable maximum cluster size
+constexpr int kKeepMax = 8192;  // longest share whose IoUs wait in shared memory (32 KB)
 
 struct LossParams {
   float match_thr, neg_thr, alpha, gamma, beta;
@@ -76,7 +98,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Sums v[0..2] over the block in a fixed order; thread 0 writes out[0..2].
 __device__ __forceinline__ void block_sum3(float v0, float v1, float v2, float* out) {
-  __shared__ float smem[3][kWarps];
+  __shared__ float smem[3][kRowWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   v0 = warp_sum(v0);
@@ -89,9 +111,9 @@ __device__ __forceinline__ void block_sum3(float v0, float v1, float v2, float* 
   }
   __syncthreads();
   if (warp == 0) {
-    float s0 = lane < kWarps ? smem[0][lane] : 0.f;
-    float s1 = lane < kWarps ? smem[1][lane] : 0.f;
-    float s2 = lane < kWarps ? smem[2][lane] : 0.f;
+    float s0 = lane < kRowWarps ? smem[0][lane] : 0.f;
+    float s1 = lane < kRowWarps ? smem[1][lane] : 0.f;
+    float s2 = lane < kRowWarps ? smem[2][lane] : 0.f;
     s0 = warp_sum(s0);
     s1 = warp_sum(s1);
     s2 = warp_sum(s2);
@@ -123,51 +145,6 @@ __device__ __forceinline__ void argmax_merge(float& v, int& i, float ov, int oi)
   if (ov > v || (ov == v && oi < i)) {
     v = ov;
     i = oi;
-  }
-}
-
-// Block (chunk, row): the chunk's largest IoU and its first index, into
-// cand_v/cand_i[row * n_chunks + chunk]. match_loss_partials merges a row's
-// chunk candidates in chunk order, so the row's argmax is the first of ties.
-__global__ void __launch_bounds__(kThreads) chunk_best_anchor(
-    const float4* __restrict__ anc_tlbr, const float4* __restrict__ gt,
-    float* __restrict__ cand_v, int* __restrict__ cand_i, int num_anchors) {
-  __shared__ float sv[kWarps];
-  __shared__ int si[kWarps];
-  const int row = blockIdx.y;
-  const int chunk = blockIdx.x;
-  const float4 g = gt[row];
-  const float area_g = area_tlbr(g);
-  const int end = min((chunk + 1) * kChunk, num_anchors);
-  float v = -1.f;  // every IoU is >= 0, so a thread's first anchor is taken
-  int i = num_anchors;
-  for (int a = chunk * kChunk + threadIdx.x; a < end; a += kThreads) {
-    const float iou = iou_tlbr(g, area_g, anc_tlbr[a]);
-    if (iou > v) {  // strict: a thread sees its anchors in increasing order
-      v = iou;
-      i = a;
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    argmax_merge(v, i, __shfl_down_sync(0xffffffffu, v, off), __shfl_down_sync(0xffffffffu, i, off));
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    sv[warp] = v;
-    si[warp] = i;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < kWarps ? sv[lane] : -1.f;
-    i = lane < kWarps ? si[lane] : num_anchors;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      argmax_merge(v, i, __shfl_down_sync(0xffffffffu, v, off), __shfl_down_sync(0xffffffffu, i, off));
-    if (lane == 0) {
-      cand_v[static_cast<size_t>(row) * gridDim.x + chunk] = v;
-      cand_i[static_cast<size_t>(row) * gridDim.x + chunk] = i;
-    }
   }
 }
 
@@ -208,60 +185,163 @@ __device__ __forceinline__ float focal_grad(float x, float pos, float alpha, flo
   return alpha_t * (-gamma * powf(one_m, gamma - 1.f) * dpt * bce + powf(one_m, gamma) * (prob - pos));
 }
 
-__global__ void __launch_bounds__(kThreads) match_loss_partials(
+// One anchor's weighted terms, added to (cls, box, npos).
+__device__ __forceinline__ void add_anchor_terms(float iou, bool is_best, float x, float4 d, float4 c,
+                                                 float4 g, float w, const LossParams& p, float& cls,
+                                                 float& box, float& npos) {
+  const bool is_pos = iou >= p.match_thr || is_best;
+  const float pos = is_pos ? 1.f : 0.f;
+  const float valid = (is_pos || iou < p.neg_thr) ? 1.f : 0.f;
+
+  // Sigmoid focal loss, as ops/losses.py::sigmoid_focal_loss.
+  const float bce = fmaxf(x, 0.f) - x * pos + log1pf(expf(-fabsf(x)));
+  const float prob = 1.f / (1.f + expf(-x));
+  const float p_t = prob * pos + (1.f - prob) * (1.f - pos);
+  const float alpha_t = p.alpha * pos + (1.f - p.alpha) * (1.f - pos);
+  const float one_m = 1.f - p_t;
+  // gamma 2, the recipe's: the plain version's pow(x, 2) is x * x as well.
+  const float mod = p.gamma == 2.f ? one_m * one_m : powf(one_m, p.gamma);
+  const float focal = alpha_t * mod * bce;
+  cls += focal * valid * w;
+
+  // The box terms carry the factor pos: a few anchors in ten thousand are
+  // positive, and only they pay for the targets' logarithms and divisions
+  // (for the others the plain version adds an exact 0).
+  if (!is_pos) return;
+  const float4 t4 = reg_targets(g, c);
+  const float pos_w = pos * w;
+  box += (smooth_l1(d.x, t4.x, p.beta) + smooth_l1(d.y, t4.y, p.beta) +
+          smooth_l1(d.z, t4.z, p.beta) + smooth_l1(d.w, t4.w, p.beta)) *
+         pos_w;
+  npos += pos_w;
+}
+
+// K1. Grid (kCluster, B), one cluster per row; block `rank` of the cluster
+// takes anchors [rank * share, min((rank + 1) * share, A)). KEEP: the share
+// has at most kKeepMax anchors and its IoUs, computed once, wait in shared
+// memory for the second pass; otherwise the second pass computes them again
+// (the same arithmetic, so the same bits). partials (B, 3) is scratch;
+// counter is the ticket, 0 between calls.
+template <bool KEEP>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kRowThreads) match_loss_row_cluster(
     const float* __restrict__ att, const float4* __restrict__ bbx,
     const float4* __restrict__ anc_tlbr, const float4* __restrict__ anc_cthw,
-    const float4* __restrict__ gt, const float* __restrict__ cand_v,
-    const int* __restrict__ cand_i, const float* __restrict__ weight,
-    float* __restrict__ partials, int* __restrict__ best_out, int num_anchors, LossParams p) {
+    const float4* __restrict__ gt, const float* __restrict__ weight, float* __restrict__ partials,
+    int* __restrict__ counter, float* __restrict__ out, int* __restrict__ best_out, int num_anchors,
+    int share, LossParams p) {
+  __shared__ float kept_iou[KEEP ? kKeepMax : 1];
+  __shared__ float warp_v[kRowWarps];
+  __shared__ int warp_i[kRowWarps];
+  __shared__ float cand_v[kCluster];    // every block's candidate, written by its owner
+  __shared__ int cand_i[kCluster];
+  __shared__ float sums[kCluster][3];   // rank 0's copy collects every block's partials
+  __shared__ float own[3];
+  __shared__ int is_last;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
   const int row = blockIdx.y;
-  const int chunk = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const float4 g = gt[row];  // (ty, tx, by, bx)
-  // The row's argmax-IoU anchor: the first chunk holding the maximum wins.
-  const int n_chunks = static_cast<int>(gridDim.x);
-  const size_t cand_off = static_cast<size_t>(row) * n_chunks;
-  float best_v = cand_v[cand_off];
-  int best = cand_i[cand_off];
-  for (int c = 1; c < n_chunks; ++c) {
-    if (cand_v[cand_off + c] > best_v) {
-      best_v = cand_v[cand_off + c];
-      best = cand_i[cand_off + c];
-    }
-  }
-  if (chunk == 0 && threadIdx.x == 0) best_out[row] = best;
   const float w = weight[row];
   const float area_g = area_tlbr(g);
-
   const size_t row_off = static_cast<size_t>(row) * num_anchors;
-  const int end = min((chunk + 1) * kChunk, num_anchors);
-  float cls = 0.f, box = 0.f, npos = 0.f;
-  for (int a = chunk * kChunk + threadIdx.x; a < end; a += kThreads) {
-    const float4 t = anc_tlbr[a];
-    const float4 c = anc_cthw[a];  // (cy, cx, h, w)
-    const float x = att[row_off + a];
-    const float4 d = bbx[row_off + a];
+  const int begin = rank * share;
+  const int end = min(begin + share, num_anchors);
 
-    const float iou = iou_tlbr(g, area_g, t);
-    const bool is_pos = iou >= p.match_thr || a == best;
-    const float pos = is_pos ? 1.f : 0.f;
-    const float valid = (is_pos || iou < p.neg_thr) ? 1.f : 0.f;
-
-    // Sigmoid focal loss, as ops/losses.py::sigmoid_focal_loss.
-    const float bce = fmaxf(x, 0.f) - x * pos + log1pf(expf(-fabsf(x)));
-    const float prob = 1.f / (1.f + expf(-x));
-    const float p_t = prob * pos + (1.f - prob) * (1.f - pos);
-    const float alpha_t = p.alpha * pos + (1.f - p.alpha) * (1.f - pos);
-    const float focal = alpha_t * powf(1.f - p_t, p.gamma) * bce;
-    cls += focal * valid * w;
-
-    const float4 t4 = reg_targets(g, c);
-    const float pos_w = pos * w;
-    box += (smooth_l1(d.x, t4.x, p.beta) + smooth_l1(d.y, t4.y, p.beta) +
-            smooth_l1(d.z, t4.z, p.beta) + smooth_l1(d.w, t4.w, p.beta)) *
-           pos_w;
-    npos += pos_w;
+  // Pass 1: every IoU of the share; this thread's largest and its first
+  // index (a thread sees its anchors in increasing order: strict >).
+  float v = -1.f;  // every IoU is >= 0, so a thread's first anchor is taken
+  int idx = num_anchors;
+  for (int a = begin + threadIdx.x; a < end; a += kRowThreads) {
+    const float iou = iou_tlbr(g, area_g, anc_tlbr[a]);
+    if constexpr (KEEP) kept_iou[a - begin] = iou;  // read back by this thread only
+    if (iou > v) {
+      v = iou;
+      idx = a;
+    }
   }
-  block_sum3(cls, box, npos, partials + (cand_off + chunk) * 3);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    argmax_merge(v, idx, __shfl_down_sync(0xffffffffu, v, off), __shfl_down_sync(0xffffffffu, idx, off));
+  if (lane == 0) {
+    warp_v[warp] = v;
+    warp_i[warp] = idx;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < kRowWarps ? warp_v[lane] : -1.f;
+    idx = lane < kRowWarps ? warp_i[lane] : num_anchors;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      argmax_merge(v, idx, __shfl_down_sync(0xffffffffu, v, off), __shfl_down_sync(0xffffffffu, idx, off));
+    v = __shfl_sync(0xffffffffu, v, 0);
+    idx = __shfl_sync(0xffffffffu, idx, 0);
+    // Lane r writes this block's candidate into block r's shared memory.
+    if (lane < kCluster) {
+      cluster.map_shared_rank(cand_v, lane)[rank] = v;
+      cluster.map_shared_rank(cand_i, lane)[rank] = idx;
+    }
+  }
+  cluster.sync();
+
+  // The row's argmax-IoU anchor: candidates merged in rank order, so the
+  // first share holding the maximum wins.
+  float best_v = cand_v[0];
+  int best = cand_i[0];
+#pragma unroll
+  for (int r = 1; r < kCluster; ++r) argmax_merge(best_v, best, cand_v[r], cand_i[r]);
+
+  // Pass 2: labels, losses and targets of the share.
+  float cls = 0.f, box = 0.f, npos = 0.f;
+#pragma unroll 1
+  for (int a = begin + threadIdx.x; a < end; a += kRowThreads) {
+    const float iou = KEEP ? kept_iou[a - begin] : iou_tlbr(g, area_g, anc_tlbr[a]);
+    add_anchor_terms(iou, a == best, att[row_off + a], bbx[row_off + a], anc_cthw[a], g, w, p, cls, box,
+                     npos);
+  }
+  block_sum3(cls, box, npos, own);  // thread 0 holds the sums and has written them to own
+  if (threadIdx.x == 0) {
+    float* dst = cluster.map_shared_rank(&sums[0][0], 0) + rank * 3;
+    dst[0] = own[0];
+    dst[1] = own[1];
+    dst[2] = own[2];
+  }
+  cluster.sync();  // nothing reads another block's shared memory after this
+  if (rank != 0) return;
+
+  if (threadIdx.x == 0) {
+    float s0 = sums[0][0], s1 = sums[0][1], s2 = sums[0][2];
+#pragma unroll
+    for (int r = 1; r < kCluster; ++r) {
+      s0 += sums[r][0];
+      s1 += sums[r][1];
+      s2 += sums[r][2];
+    }
+    partials[3 * row] = s0;
+    partials[3 * row + 1] = s1;
+    partials[3 * row + 2] = s2;
+    best_out[row] = best;
+    __threadfence();  // the row's sums are visible before its ticket is drawn
+    is_last = atomicAdd(counter, 1) == static_cast<int>(gridDim.y) - 1;
+  }
+  __syncthreads();
+  if (!is_last) return;
+
+  // The last cluster: every row's sums are in partials. Rows in a fixed
+  // order (thread i takes rows i, i + kRowThreads, ...; then the tree).
+  __threadfence();
+  const int n = static_cast<int>(gridDim.y);
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+  for (int i = threadIdx.x; i < n; i += kRowThreads) {
+    s0 += __ldcg(partials + 3 * i);
+    s1 += __ldcg(partials + 3 * i + 1);
+    s2 += __ldcg(partials + 3 * i + 2);
+  }
+  __syncthreads();  // block_sum3's shared memory is free again
+  block_sum3(s0, s1, s2, out);
+  if (threadIdx.x == 0) *counter = 0;  // ready for the next call on this stream
 }
 
 // K2. Block (anchor block, row), one thread per anchor. best_idx is K1's
@@ -298,55 +378,39 @@ __global__ void __launch_bounds__(kThreads) match_loss_grads(
                         g_box * smooth_l1_grad(d.w, t4.w, p.beta) * pos * w);
 }
 
-// One block: out[k] = sum over n partial triples of partials[i, k], in a
-// fixed order (thread i takes entries i, i + kThreads, ...; then the tree).
-__global__ void __launch_bounds__(kThreads) sum_partials(const float* __restrict__ partials,
-                                                         int n, float* __restrict__ out) {
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    s0 += partials[3 * i];
-    s1 += partials[3 * i + 1];
-    s2 += partials[3 * i + 2];
-  }
-  block_sum3(s0, s1, s2, out);
-}
-
 }  // namespace
 
 extern "C" {
 
-// Anchors per block, so the caller can size the partials buffer.
-int zsg_match_loss_chunk() { return kChunk; }
-
-// K1: launches the three kernels on `stream`; out = (cls_sum, box_sum,
-// num_pos), best_out = each row's argmax-IoU anchor (B ints). Scratch, with
-// n = B * ceil(A / kChunk): cand_v n floats, cand_i n ints, partials 3n
-// floats. Returns the CUDA error code of the launches (0 on success).
+// K1: one cluster launch on `stream`; out = (cls_sum, box_sum, num_pos),
+// best_out = each row's argmax-IoU anchor (B ints). partials is scratch of
+// 3 * B floats; counter is one int that is 0 before the first call and that
+// only calls on this stream use. The kept-in-registers instance is chosen by
+// the share's length alone. Returns the CUDA error code of the launch (0 on
+// success).
 int zsg_match_loss_fwd(const void* att, const void* bbx, const void* anc_tlbr,
                        const void* anc_cthw, const void* gt, const void* weight,
-                       void* cand_v, void* cand_i, void* partials, void* out, void* best_out,
+                       void* partials, void* counter, void* out, void* best_out,
                        int batch, int num_anchors, float match_thr, float neg_thr, float alpha,
                        float gamma, float beta, void* stream) {
   if (batch <= 0 || batch > 65535 || num_anchors <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_chunks = (num_anchors + kChunk - 1) / kChunk;
+  const int share = (num_anchors + kCluster - 1) / kCluster;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const LossParams p{match_thr, neg_thr, alpha, gamma, beta};
-  const dim3 grid(n_chunks, batch);
-  chunk_best_anchor<<<grid, kThreads, 0, s>>>(
-      static_cast<const float4*>(anc_tlbr), static_cast<const float4*>(gt),
-      static_cast<float*>(cand_v), static_cast<int*>(cand_i), num_anchors);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  match_loss_partials<<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(att), static_cast<const float4*>(bbx),
-      static_cast<const float4*>(anc_tlbr), static_cast<const float4*>(anc_cthw),
-      static_cast<const float4*>(gt), static_cast<const float*>(cand_v),
-      static_cast<const int*>(cand_i), static_cast<const float*>(weight),
-      static_cast<float*>(partials), static_cast<int*>(best_out), num_anchors, p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sum_partials<<<1, kThreads, 0, s>>>(static_cast<const float*>(partials), batch * n_chunks,
-                                      static_cast<float*>(out));
+  const dim3 grid(kCluster, batch);
+#define ZSG_K1_LAUNCH(KEEP)                                                                        \
+  match_loss_row_cluster<KEEP><<<grid, kRowThreads, 0, s>>>(                                       \
+      static_cast<const float*>(att), static_cast<const float4*>(bbx),                             \
+      static_cast<const float4*>(anc_tlbr), static_cast<const float4*>(anc_cthw),                  \
+      static_cast<const float4*>(gt), static_cast<const float*>(weight),                           \
+      static_cast<float*>(partials), static_cast<int*>(counter), static_cast<float*>(out),         \
+      static_cast<int*>(best_out), num_anchors, share, p)
+  if (share <= kKeepMax) {
+    ZSG_K1_LAUNCH(true);
+  } else {
+    ZSG_K1_LAUNCH(false);
+  }
+#undef ZSG_K1_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 

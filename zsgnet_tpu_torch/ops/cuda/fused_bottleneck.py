@@ -14,11 +14,19 @@ operands with float32 accumulation; the output has x's dtype.
 
 * on CUDA tensors ``fused_bottleneck_infer`` launches kernel K3, written by
   hand in ``csrc/fused_bottleneck.cu`` (built at first use,
-  ``ops/cuda/build.py``), or raises — it never falls back;
+  ``ops/cuda/build.py``), or raises — it never falls back. The source holds
+  two kernels and picks one from the shape alone before it launches: the
+  Hopper kernel (``wgmma`` in every stage, x brought in by TMA) takes Cmid 64
+  with Cin and Cout multiples of 64, which are ResNet-50's layer1 widths;
+  the ``mma.sync`` kernel takes every other shape (:func:`kernel_for`);
 * on CPU tensors it runs ``bottleneck_infer_reference``, the same function
   in eager PyTorch.
 
-``fused_bottleneck_infer.launches`` counts kernel launches. No model path
+``fused_bottleneck_infer.launches`` counts kernel launches of
+``fused_bottleneck_infer`` (one per call); the Hopper kernel's weights are
+packed by one more launch the first time a set of weights is seen, counted
+apart in ``fused_bottleneck_infer.pack_launches``; :func:`launch_variant` (a named kernel at any
+shape it takes, for timing the two side by side) counts none. No model path
 of the port calls K3, as none of the JAX package does: it is driven by
 ``zsgnet_tpu_torch.tools.bench_bottleneck``, ``chip_smoke.py`` and the tests,
 which fold the port's own ``models.resnet.Bottleneck`` with
@@ -28,6 +36,7 @@ which fold the port's own ``models.resnet.Bottleneck`` with
 from __future__ import annotations
 
 import ctypes
+from collections import OrderedDict
 
 import torch
 import torch.nn.functional as F
@@ -111,20 +120,30 @@ def bottleneck_infer_reference(
     return _bottleneck_math(x, w1, s1, b1, w2, s2, b2, w3, s3, b3, wd, sd, bd, _to_bf16).to(x.dtype)
 
 
-def _lib() -> ctypes.CDLL:
-    from zsgnet_tpu_torch.ops.cuda import build
-
-    lib = build.load("fused_bottleneck")
+def _typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument types of the library's C interface (once)."""
     if not getattr(lib, "_zsg_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.zsg_bottleneck_infer.argtypes = [ptr] * 14 + [i32] * 7 + [ptr]
-        lib.zsg_bottleneck_infer.restype = i32
+        lib.zsg_bottleneck_infer_variant.argtypes = [ptr] * 15 + [i32] * 9 + [ptr]
+        lib.zsg_bottleneck_infer_variant.restype = i32
+        lib.zsg_bottleneck_pack.argtypes = [ptr] * 13 + [i32] * 3 + [ptr]
+        lib.zsg_bottleneck_pack.restype = i32
+        lib.zsg_bottleneck_packed_bytes.argtypes = [i32] * 3
+        lib.zsg_bottleneck_packed_bytes.restype = ctypes.c_longlong
+        lib.zsg_bottleneck_variant.argtypes = [i32] * 4
+        lib.zsg_bottleneck_variant.restype = i32
         lib.zsg_bottleneck_smem_bytes.argtypes = [i32] * 4
         lib.zsg_bottleneck_smem_bytes.restype = ctypes.c_longlong
         lib.zsg_bottleneck_max_smem.argtypes = []
         lib.zsg_bottleneck_max_smem.restype = i32
         lib._zsg_typed = True
     return lib
+
+
+def _lib() -> ctypes.CDLL:
+    from zsgnet_tpu_torch.ops.cuda import build
+
+    return _typed(build.load("fused_bottleneck"))
 
 
 def _check_args(x: Tensor, w1, s1, b1, w2, s2, b2, w3, s3, b3, wd, sd, bd) -> tuple[int, int, int]:
@@ -161,32 +180,123 @@ def _check_args(x: Tensor, w1, s1, b1, w2, s2, b2, w3, s3, b3, wd, sd, bd) -> tu
     return cin, cmid, cout
 
 
-def _launch(x: Tensor, cin: int, cmid: int, cout: int, *ws: Tensor | None) -> Tensor:
-    """Launch K3 on the current stream → (B, H, W, Cout) in x's dtype."""
+VARIANTS = {"auto": 0, "mma": 1, "wgmma8x8": 2, "wgmma8x16": 3}
+
+
+def kernel_for(cin: int, cmid: int, cout: int, proj: bool) -> str:
+    """The kernel that K3 launches for these widths: ``"mma"`` or
+    ``"wgmma8x16"`` (the Hopper kernel with its 8 × 16 output tile; its 8 × 8
+    instance, ``"wgmma8x8"``, runs only through :func:`launch_variant`).
+    Decided in the CUDA source from the widths alone."""
+    code = _lib().zsg_bottleneck_variant(cin, cmid, cout, int(proj))
+    return next(k for k, v in VARIANTS.items() if v == code)
+
+
+def _check_kernel_layout(x: Tensor, cin: int, cmid: int, cout: int) -> None:
+    """What the kernels need beyond :func:`_check_args`: widths, and an x that
+    16-byte copies and the TMA tensor map can address (a 16-byte aligned base
+    and a pixel stride that is a multiple of 16 bytes)."""
     if cin % 16 or cout % 16 or not 0 < cmid <= 64:
         raise ValueError(f"the kernel takes Cin and Cout multiples of 16 and Cmid up to 64, "
                          f"got {cin}, {cout} and {cmid}")
     if x.data_ptr() % 16:
-        raise ValueError("x must be 16-byte aligned for the kernel's 16-byte copies")
-    lib = _lib()
-    dev = x.device
-    proj = ws[-1] is not None
-    ws = [None if w is None else w.float().contiguous() for w in ws]
-    with torch.cuda.device(dev):  # the runtime launches on the current device
+        raise ValueError("x must be 16-byte aligned for the kernel's 16-byte copies and its tensor map")
+    if x.stride(3) != 1 or (x.stride(2) * x.element_size()) % 16:
+        raise ValueError(f"x's channels must be contiguous and its pixel stride a multiple of 16 bytes, "
+                         f"got strides {tuple(x.stride())}")
+
+
+# The Hopper kernel reads a block's weights packed (bf16, transposed and
+# swizzled as it keeps them in shared memory, scales and biases behind
+# them). They are made by one launch of a packing kernel the first time a
+# set of weights is seen on a stream, and kept here. The key holds each
+# tensor's identity and version counter (an in-place update packs anew;
+# inference tensors have no counter and must not be updated in place between
+# calls), and the entry keeps the tensors alive, so an identity in a key is
+# never another tensor's.
+_PACKED_MAX = 64
+_packed: OrderedDict[tuple, tuple[Tensor, tuple]] = OrderedDict()
+_plans: dict[tuple, str] = {}  # (device, widths) → the kernel K3 launches, its shared memory checked
+
+
+def _packed_weights(lib: ctypes.CDLL, ws: tuple[Tensor | None, ...], cin: int, cmid: int, cout: int,
+                    stream: int) -> Tensor:
+    key = (stream, *(None if w is None else (id(w), 0 if w.is_inference() else w._version) for w in ws))
+    hit = _packed.get(key)
+    if hit is not None:
+        _packed.move_to_end(key)
+        return hit[0]
+    f32 = [None if w is None else w.float().contiguous() for w in ws]
+    packed = torch.empty((lib.zsg_bottleneck_packed_bytes(cin, cout, int(ws[-1] is not None)),),
+                         dtype=torch.uint8, device=ws[0].device)
+    err = lib.zsg_bottleneck_pack(*(None if t is None else t.data_ptr() for t in f32), packed.data_ptr(),
+                                  cin, cmid, cout, stream)  # on this stream: ordered before its readers
+    if err != 0:
+        raise RuntimeError(f"fused bottleneck packing kernel launch failed with CUDA error {err}")
+    fused_bottleneck_infer.pack_launches += 1
+    _packed[key] = (packed, ws)
+    if len(_packed) > _PACKED_MAX:
+        _packed.popitem(last=False)
+    return packed
+
+
+def _plan(lib: ctypes.CDLL, dev: torch.device, cin: int, cmid: int, cout: int, proj: bool) -> str:
+    """The kernel for these widths on ``dev`` (with the device current), after
+    checking once that its shared memory fits the card."""
+    key = (dev, cin, cmid, cout, proj)
+    if key not in _plans:
         need, limit = lib.zsg_bottleneck_smem_bytes(cin, cmid, cout, int(proj)), lib.zsg_bottleneck_max_smem()
         if need > limit:
             raise ValueError(f"widths Cin {cin}, Cmid {cmid}, Cout {cout} need {need} bytes of shared "
                              f"memory per block; the device allows {limit}")
+        _plans[key] = kernel_for(cin, cmid, cout, proj)
+    return _plans[key]
+
+
+def _launch(x: Tensor, cin: int, cmid: int, cout: int, *ws: Tensor | None,
+            variant: str = "auto", prologue_only: bool = False) -> Tensor:
+    """Launch K3 on the current stream → (B, H, W, Cout) in x's dtype."""
+    _check_kernel_layout(x, cin, cmid, cout)
+    lib = _lib()
+    dev = x.device
+    with torch.cuda.device(dev):  # the runtime launches on the current device
+        kernel = _plan(lib, dev, cin, cmid, cout, ws[-1] is not None)
+        if variant != "auto":
+            kernel = variant
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if kernel == "mma":  # reads the float32 weights themselves
+            packed, ptrs = None, [None if w is None else w.float().contiguous() for w in ws]
+        else:  # reads only the packed copy; a non-null wd still says "projection"
+            packed, ptrs = _packed_weights(lib, ws, cin, cmid, cout, stream), ws
         b, h, w, _ = x.shape
         out = torch.empty((b, h, w, cout), dtype=x.dtype, device=dev)
-        err = lib.zsg_bottleneck_infer(
-            x.data_ptr(), *(None if t is None else t.data_ptr() for t in ws), out.data_ptr(),
-            b, h, w, cin, cmid, cout, int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream,
+        err = lib.zsg_bottleneck_infer_variant(
+            x.data_ptr(), *(None if t is None else t.data_ptr() for t in ptrs),
+            None if packed is None else packed.data_ptr(), out.data_ptr(),
+            b, h, w, cin, cmid, cout, int(x.dtype == torch.bfloat16), VARIANTS[variant],
+            int(prologue_only), stream,
         )
     if err != 0:
-        raise RuntimeError(f"fused bottleneck kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"fused bottleneck kernel ({variant}) launch failed with CUDA error {err}")
     return out
+
+
+def launch_variant(
+    variant: str, x: Tensor, w1: Tensor, s1: Tensor, b1: Tensor, w2: Tensor, s2: Tensor, b2: Tensor,
+    w3: Tensor, s3: Tensor, b3: Tensor, wd: Tensor | None = None, sd: Tensor | None = None,
+    bd: Tensor | None = None, *, prologue_only: bool = False,
+) -> Tensor:
+    """K3 through the kernel named by ``variant`` (a key of ``VARIANTS``) on a
+    CUDA tensor, whatever :func:`kernel_for` would pick; raises if that
+    kernel does not take the shape. For timing the kernels side by side in
+    one run; the package itself calls :func:`fused_bottleneck_infer`. With
+    ``prologue_only`` the Hopper kernel's grid runs over no tile (its weight
+    prologue alone) and the returned tensor is not written."""
+    cin, cmid, cout = _check_args(x, w1, s1, b1, w2, s2, b2, w3, s3, b3, wd, sd, bd)
+    if x.device.type != "cuda":
+        raise ValueError(f"launch_variant runs a kernel and needs a CUDA tensor, not {x.device}")
+    return _launch(x, cin, cmid, cout, w1, s1, b1, w2, s2, b2, w3, s3, b3, wd, sd, bd,
+                   variant=variant, prologue_only=prologue_only)
 
 
 def fused_bottleneck_infer(
@@ -199,8 +309,8 @@ def fused_bottleneck_infer(
     x (B, H, W, Cin) bf16 or float32, contiguous; w1 (Cin, Cmid); w2 (3, 3,
     Cmid, Cmid); w3 (Cmid, Cout); s*/b* folded BatchNorm (:func:`fold_bn`);
     wd/sd/bd the 1×1 projection residual, required when Cin != Cout. K3 on
-    CUDA (Cin and Cout multiples of 16, Cmid up to 64), the plain version on
-    the CPU. Returns (B, H, W, Cout) in x's dtype.
+    CUDA (Cin and Cout multiples of 16, Cmid up to 64, x 16-byte aligned),
+    the plain version on the CPU. Returns (B, H, W, Cout) in x's dtype.
     """
     cin, cmid, cout = _check_args(x, w1, s1, b1, w2, s2, b2, w3, s3, b3, wd, sd, bd)
     if x.device.type == "cpu":
@@ -213,3 +323,4 @@ def fused_bottleneck_infer(
 
 
 fused_bottleneck_infer.launches = 0
+fused_bottleneck_infer.pack_launches = 0  # launches of the weight-packing kernel, counted apart

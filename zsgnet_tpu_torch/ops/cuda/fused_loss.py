@@ -16,8 +16,11 @@ normalizes, with a gradient for the logits and the box deltas through
 K1 also returns each row's first-index argmax-IoU anchor, which the JAX
 package computes with XLA outside its Pallas kernel and saves as its VJP
 residual; the Function saves it so that K2 searches nothing. The plain
-versions recompute it with ``argmax``. ``fused_match_loss.launches`` and
-``fused_match_loss_backward.launches`` count kernel launches.
+versions recompute it with ``argmax``. K1 is one launch of one thread-block
+cluster per row; its cross-row sum is taken by the last cluster to finish,
+found with an integer ticket that this module keeps per device and stream.
+``fused_match_loss.launches`` and ``fused_match_loss_backward.launches``
+count kernel launches.
 """
 
 from __future__ import annotations
@@ -105,12 +108,10 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("fused_loss")
     if not getattr(lib, "_zsg_typed", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.zsg_match_loss_fwd.argtypes = [ptr] * 11 + [i32, i32] + [f32] * 5 + [ptr]
+        lib.zsg_match_loss_fwd.argtypes = [ptr] * 10 + [i32, i32] + [f32] * 5 + [ptr]
         lib.zsg_match_loss_fwd.restype = i32
         lib.zsg_match_loss_bwd.argtypes = [ptr] * 10 + [i32, i32] + [f32] * 5 + [ptr]
         lib.zsg_match_loss_bwd.restype = i32
-        lib.zsg_match_loss_chunk.argtypes = []
-        lib.zsg_match_loss_chunk.restype = i32
         lib._zsg_typed = True
     return lib
 
@@ -151,6 +152,20 @@ def _check_inputs(
     return b, a
 
 
+# K1's ticket counters, one int32 per (device, stream), zero between calls.
+# The kernel's last cluster returns the counter to 0, so it is zeroed once.
+# Calls on two streams may overlap on the card and must not draw tickets
+# from one counter, hence the stream in the key.
+_tickets: dict[tuple[int, int], Tensor] = {}
+
+
+def _ticket(dev: torch.device, stream: int) -> Tensor:
+    key = (dev.index if dev.index is not None else torch.cuda.current_device(), stream)
+    if key not in _tickets:
+        _tickets[key] = torch.zeros((1,), dtype=torch.int32, device=dev)
+    return _tickets[key]
+
+
 def _launch_fwd(
     att: Tensor, bbx: Tensor, anchors_tlbr: Tensor, anchors_cthw: Tensor,
     gt: Tensor, w: Tensor, match_thr: float, neg_thr: float, alpha: float, gamma: float,
@@ -159,18 +174,16 @@ def _launch_fwd(
     b, a = _check_inputs(att, bbx, anchors_tlbr, anchors_cthw, gt, w)
     dev = att.device
     lib = _lib()
-    n_chunks = -(-a // lib.zsg_match_loss_chunk())
-    cand_v = torch.empty((b * n_chunks,), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((b * n_chunks,), dtype=torch.int32, device=dev)
-    partials = torch.empty((b * n_chunks * 3,), dtype=torch.float32, device=dev)
+    partials = torch.empty((3 * b,), dtype=torch.float32, device=dev)  # scratch: each row's sums
     out = torch.empty((3,), dtype=torch.float32, device=dev)
     best = torch.empty((b,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):  # the runtime launches on the current device
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.zsg_match_loss_fwd(
             att.data_ptr(), bbx.data_ptr(), anchors_tlbr.data_ptr(), anchors_cthw.data_ptr(),
-            gt.data_ptr(), w.data_ptr(), cand_v.data_ptr(), cand_i.data_ptr(),
-            partials.data_ptr(), out.data_ptr(), best.data_ptr(), b, a,
-            match_thr, neg_thr, alpha, gamma, BETA, torch.cuda.current_stream(dev).cuda_stream,
+            gt.data_ptr(), w.data_ptr(), partials.data_ptr(), _ticket(dev, stream).data_ptr(),
+            out.data_ptr(), best.data_ptr(), b, a,
+            match_thr, neg_thr, alpha, gamma, BETA, stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_loss forward kernel launch failed with CUDA error {err}")

@@ -12,8 +12,19 @@ same weights. Then CUDA events time 50 calls each of K3, the plain version,
 and the eager block in eval mode under bf16 autocast (the cuDNN route the
 model takes) in NCHW and in ``channels_last``. The identity calls are
 chained, each taking the last one's output; the projection changes the
-width, so its calls repeat on one input. Prints one JSON object per block
-after the card's name and power limit; ``bench`` returns the same dict.
+width, so its calls repeat on one input. Beside K3 as the package calls it
+(``k3_ms``, the kernel that the shape selects, named in ``k3_kernel``) the
+same run times each kernel of the source on the same inputs, in turns:
+the ``mma.sync`` kernel (``k3_mma_ms``) and the Hopper kernel with 8 × 8 and
+8 × 16 output tiles (``k3_wgmma8x8_ms``, ``k3_wgmma8x16_ms``), each checked
+against the plain version first. Each ``*_ms`` is CUDA events around
+back-to-back calls, which the host's time per call bounds from below when
+the kernel is shorter than that; each ``*_device_ms`` is the kernel's own
+time on the card per launch, from ``torch.profiler``. ``prologue_device_ms``
+is the Hopper kernel's weight prologue alone (its grid launched over no
+tile). Prints one JSON
+object per block after the card's name and power limit; ``bench`` returns
+the same dict.
 """
 
 from __future__ import annotations
@@ -30,6 +41,8 @@ from zsgnet_tpu_torch.models.resnet import Bottleneck
 from zsgnet_tpu_torch.ops.cuda.fused_bottleneck import (
     bottleneck_infer_reference,
     fused_bottleneck_infer,
+    kernel_for,
+    launch_variant,
 )
 from zsgnet_tpu_torch.utils.backend import resolve_device
 
@@ -96,6 +109,28 @@ def _ms(fn, x: torch.Tensor, iters: int, chain: bool) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(fn, x: torch.Tensor, iters: int, chain: bool) -> float:
+    """Mean time on the device of the K3 kernel that ``fn`` launches, per
+    launch, from ``torch.profiler``'s CUDA activity: what the card spends,
+    whatever the host takes to get to the next launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    y = fn(x)
+    torch.cuda.synchronize()
+    rows = []
+    for _ in range(3):  # the profiler now and then returns a window without its device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                y = fn(y if chain else x)
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and "bottleneck_" in e.key and "_kernel" in e.key]
+        if len(rows) == 1 and rows[0].count > 0:
+            return rows[0].self_device_time_total / 1e3 / rows[0].count
+    raise AssertionError(f"expected one K3 kernel in the profile, found {[(e.key, e.count) for e in rows]}")
+
+
 def _rel(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     d = float((got.float() - want.float()).abs().max())
     return d, d / max(float(want.float().abs().max()), 1e-6)
@@ -142,8 +177,27 @@ def bench(b: int = 128, device: str | torch.device = "cuda", *, proj: bool = Fal
         if not eager_rel < 0.05:
             raise AssertionError(f"the eager block diverges from the plain version: relative {eager_rel}")
         chain = not proj
+        selected = kernel_for(cin, CMID, COUT, proj)
+        by_kernel = {}
+        for name in ("mma", "wgmma8x8", "wgmma8x16"):
+            y = launch_variant(name, x, **args)
+            torch.cuda.synchronize()
+            if not _rel(y, want)[1] < 0.05:
+                raise AssertionError(f"K3's {name} kernel diverges from its plain version: {_rel(y, want)}")
+        # In turns, so that no kernel alone meets a warmer or a throttled card.
+        for name in ("mma", "wgmma8x8", "wgmma8x16", "wgmma8x16", "wgmma8x8", "mma"):
+            t = _ms(lambda t, name=name: launch_variant(name, t, **args), x, iters, chain)
+            by_kernel[name] = min(by_kernel.get(name, t), t)
+        device = {name: _device_ms(lambda t, name=name: launch_variant(name, t, **args), x, 20, chain)
+                  for name in by_kernel}
         times = {
             "k3_ms": _ms(fused, x, iters, chain),
+            "k3_kernel": selected,
+            "k3_device_ms": device[selected],
+            **{f"k3_{name}_ms": t for name, t in by_kernel.items()},
+            **{f"k3_{name}_device_ms": t for name, t in device.items()},
+            "prologue_device_ms": _device_ms(
+                lambda t: launch_variant(selected, t, **args, prologue_only=True), x, 20, False),
             "plain_ms": _ms(plain, x, iters, chain),
             "eager_nchw_ms": _ms(eager(block), x_nchw, iters, chain),
             "eager_channels_last_ms": _ms(eager(block_cl), x_cl, iters, chain),
