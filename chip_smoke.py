@@ -13,7 +13,10 @@ validation, checkpoints), then a reload, step timings and an overfit run,
 and last layer1 of the same model through the fused inference bottleneck
 (K3) against the eager layer1, with K3's timings from
 ``zsgnet_tpu_torch.tools.bench_bottleneck`` (the Hopper kernel beside the
-``mma.sync`` kernel, same inputs, same run). Each path is driven with the kernels' launch counts set to 0 just before
+``mma.sync`` kernel, same inputs, same run). The loss kernels K1 and K2
+are checked on random inputs, on rows whose positives hang on the argmax
+anchor and on non-finite deltas, and timed side by side through
+``zsgnet_tpu_torch.tools.bench_loss``. Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after. Every phase is fatal on failure. The
 next-to-last line of standard output is a JSON object describing each
 kernel; the last is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -39,11 +42,15 @@ H100_F32_OPS_PER_S = 67e12   # float32 outside the tensor cores
 H100_BF16_OPS_PER_S = 989e12  # bf16 tensor cores, dense
 # Float operations per (row, anchor) in csrc/fused_loss.cu's loop body,
 # counting each transcendental (exp, log1p, pow, log) as one: IoU 17,
-# labels 3, focal 30, targets 16, smooth-L1 and the sums 30.
-K1_OPS_PER_ELEMENT = 96
-# The same for K2's body: IoU 17, labels 3, focal gradient 36, targets 16,
-# four smooth-L1 gradients 20 and the products with g, pos/valid and w 14.
-K2_OPS_PER_ELEMENT = 106
+# labels 3, focal 30, targets 16, smooth-L1 and the sums 30, the delta's
+# finiteness 4.
+K1_OPS_PER_ELEMENT = 100
+# The same for K2's kernel at every (row, anchor): IoU 17, labels 3, focal
+# gradient with one exp 34, datt's products and select 3, dbbx's zero 1;
+# and at a positive one: targets 16, four smooth-L1 gradients 20, their
+# products with g_box and w 8.
+K2_OPS_PER_ELEMENT = 58
+K2_OPS_PER_POSITIVE = 44
 BATCH = 16
 N_TRAIN = 64  # 4 steps of BATCH per epoch
 SEED = 0
@@ -51,20 +58,6 @@ SEED = 0
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def device_kernels(fn, iters: int) -> list[tuple[str, float, float]]:
@@ -92,26 +85,14 @@ def device_kernels(fn, iters: int) -> list[tuple[str, float, float]]:
     return sorted(rows, key=lambda r: -r[1])
 
 
-def k1_inputs(anchors_cthw: np.ndarray, b: int, rng: np.random.Generator):
-    """Seeded K1 inputs: random logits/deltas/boxes, weights of zeros and
-    ones, and a zero-extent gt in row 1, whose IoU is 0 at every anchor."""
-    a = anchors_cthw.shape[0]
-    att = rng.normal(size=(b, a)).astype(np.float32) * 2
-    bbx = rng.normal(size=(b, a, 4)).astype(np.float32)
-    lo = rng.uniform(-1, 0.6, size=(b, 2))
-    gt = np.concatenate([lo, lo + rng.uniform(0.05, 0.8, size=(b, 2))], axis=1).astype(np.float32)
-    gt[1] = (0.25, -0.5, 0.25, -0.5)
-    w = (rng.uniform(size=b) > 0.25).astype(np.float32)
-    w[0] = w[1] = 1.0
-    return att, bbx, gt, w
-
-
 def check_fused_loss(anchors_cthw: np.ndarray) -> dict:
-    """Phase 3: K1 against its plain version on the card, then timings."""
+    """Phase 3: K1 against its plain version on the card, one kernel launch
+    per call, bit-identical on repeat."""
     from zsgnet_tpu_torch.ops.cuda import fused_loss as fl
+    from zsgnet_tpu_torch.tools.bench_loss import random_inputs
 
     dev = torch.device("cuda")
-    att, bbx, gt, w = (torch.from_numpy(x).to(dev) for x in k1_inputs(
+    att, bbx, gt, w = (torch.from_numpy(x).to(dev) for x in random_inputs(
         anchors_cthw, BATCH, np.random.default_rng(SEED)))
     anc = fl.pack_anchors(anchors_cthw, dev)
     got = fl.fused_match_loss(att, bbx, *anc, gt, w)
@@ -128,24 +109,13 @@ def check_fused_loss(anchors_cthw: np.ndarray) -> dict:
     if float(tie[2]) != 1.0:
         raise AssertionError(f"tie row has num_pos {float(tie[2])}, expected 1")
 
-    b, a = att.shape
-    call = lambda: fl.fused_match_loss(att, bbx, *anc, gt, w)  # noqa: E731
-    ms = cuda_ms(call)
-    plain_ms = cuda_ms(lambda: fl.fused_match_loss_reference(att, bbx, *anc, gt, w))
-    kernels = device_kernels(call, 20)
-    device_ms = sum(t for _, t, _ in kernels)
+    kernels = device_kernels(lambda: fl.fused_match_loss(att, bbx, *anc, gt, w), 20)
     per_call = sum(n for *_, n in kernels)
     if len(kernels) != 1 or per_call != 1:
         raise AssertionError(f"K1 must be one kernel launch per call, the profile shows {kernels}")
     again = fl.fused_match_loss(att, bbx, *anc, gt, w)
     if not torch.equal(again, got):
         raise AssertionError(f"K1 is not bit-identical on repeat: {again.tolist()} vs {got.tolist()}")
-    n_bytes = b * a * (4 + 16) + a * 32 + b * (16 + 4) + 3 * 4
-    bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
-    ops_ms = b * a * K1_OPS_PER_ELEMENT / H100_F32_OPS_PER_S * 1e3
-    log(f"K1 B={b} A={a}: {ms:.4f} ms per call back to back, device {device_ms:.4f} ms "
-        f"({[(k, round(t, 5), n) for k, t, n in kernels]}), plain {plain_ms:.4f} ms, "
-        f"bound {max(bytes_ms, ops_ms) * 1e3:.3f} us")
     return {
         "name": "fused_match_loss_fwd",
         "route": "cuda",
@@ -154,22 +124,35 @@ def check_fused_loss(anchors_cthw: np.ndarray) -> dict:
         "launches": 0,
         "kernel_launches_per_call": int(per_call),
         "max_abs_err": float((got_c - want_c).abs().max()),
-        "ms": ms,
-        "device_ms": device_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
     }
 
 
+def _held(name: str, got, want, atol: float) -> float:
+    """Max abs difference of two tensor tuples with NaN positions equal
+    (fatal beyond ``atol`` or at another NaN or infinity)."""
+    err = 0.0
+    for g, x in zip(got, want):
+        g, x = g.double().cpu().numpy(), x.double().cpu().numpy()
+        np.testing.assert_allclose(g, x, atol=atol, rtol=0, equal_nan=True, err_msg=name)
+        fin = np.isfinite(x)
+        err = max(err, float(np.abs(g[fin] - x[fin]).max(initial=0.0)))
+    return err
+
+
 def check_fused_loss_backward(anchors_cthw: np.ndarray) -> dict:
-    """Phase 3b: K2 against its plain version on the card, the Function's
-    gradients against autograd of the plain forward, then timings."""
+    """Phase 3b: K2 against its plain version on the card (random inputs;
+    the promotion case at A = 17451, whose rows' positives hang on promoted
+    and tied argmax anchors, with zero-weight rows; non-finite deltas, where
+    K2 takes its positive-only branch and K1 its NaN box sum), the
+    elementwise kernel beside it, and the Function's gradients against
+    autograd of the plain forward."""
     from zsgnet_tpu_torch.ops.cuda import fused_loss as fl
+    from zsgnet_tpu_torch.tools.bench_loss import random_inputs
+    from zsgnet_tpu_torch.tools.loss_cases import k1_promotion_case, nonfinite_case
 
     dev = torch.device("cuda")
-    att, bbx, gt, w = (torch.from_numpy(x).to(dev) for x in k1_inputs(
+    att, bbx, gt, w = (torch.from_numpy(x).to(dev) for x in random_inputs(
         anchors_cthw, BATCH, np.random.default_rng(SEED + 1)))
     anc = fl.pack_anchors(anchors_cthw, dev)
     sums, best = fl._launch_fwd(att, bbx, *anc, gt, w, 0.5, 0.4, 0.25, 2.0)
@@ -177,12 +160,45 @@ def check_fused_loss_backward(anchors_cthw: np.ndarray) -> dict:
     grad = torch.stack([1.0 / n, 1.0 / n, torch.zeros_like(n)])  # d total / d sums, lamb_reg 1
     got = fl.fused_match_loss_backward(att, bbx, *anc, gt, w, best, grad)
     want = fl.fused_match_loss_backward_reference(att, bbx, *anc, gt, w, grad)
-    torch.cuda.synchronize()
-    err = max(float((g - x).abs().max()) for g, x in zip(got, want))
+    err = _held("K2 vs plain", got, want, 1e-6)
+    _held("the elementwise K2 vs plain", fl.launch_bwd_variant("elementwise", att, bbx, *anc, gt, w, best, grad),
+          want, 1e-6)
     log(f"K2 kernel vs plain: max abs error {err:.3e} (datt max {float(want[0].abs().max()):.4f}, "
         f"dbbx max {float(want[1].abs().max()):.4f})")
-    if err > 1e-6:
-        raise AssertionError(f"K2 differs from its plain version by {err} (atol 1e-6)")
+
+    c = k1_promotion_case(BATCH, anchors_cthw.shape[0], SEED)
+    p_att, p_bbx, p_gt, p_w = (torch.from_numpy(c[k]).to(dev) for k in ("att", "bbx", "gt", "w"))
+    p_anc = fl.pack_anchors(c["anchors_cthw"], dev)
+    _, p_best = fl._launch_fwd(p_att, p_bbx, *p_anc, p_gt, p_w, 0.5, 0.4, 0.25, 2.0)
+    if p_best.tolist() != c["best"].tolist():
+        raise AssertionError(f"K1's argmax anchors {p_best.tolist()} on the promotion case, built for {c['best'].tolist()}")
+    p_grad = torch.tensor([0.3, -1.1, 0.0], device=dev)
+    p_want = fl.fused_match_loss_backward_reference(p_att, p_bbx, *p_anc, p_gt, p_w, p_grad)
+    p_err = _held("K2 vs plain, promotion case",
+                  fl.fused_match_loss_backward(p_att, p_bbx, *p_anc, p_gt, p_w, p_best, p_grad), p_want, 1e-6)
+    _held("the elementwise K2 vs plain, promotion case",
+          fl.launch_bwd_variant("elementwise", p_att, p_bbx, *p_anc, p_gt, p_w, p_best, p_grad), p_want, 1e-6)
+    log(f"K2 vs plain on the promotion case (B={BATCH}, A={anchors_cthw.shape[0]}): max abs error {p_err:.3e}")
+
+    # NaN in a positive anchor's delta: dbbx NaN there; +inf in a negative
+    # anchor's: K1's box sum NaN, K2's dbbx 0 there.
+    for value, label in (("nan", "positive"), ("inf", "negative")):
+        c = nonfinite_case(float(value), "bbx", label, 1.0)
+        n_att, n_bbx, n_gt, n_w = (torch.from_numpy(c[k]).to(dev) for k in ("att", "bbx", "gt", "w"))
+        n_anc = fl.pack_anchors(c["anchors_cthw"], dev)
+        n_sums, n_best = fl._launch_fwd(n_att, n_bbx, *n_anc, n_gt, n_w, 0.5, 0.4, 0.25, 2.0)
+        _held(f"K1 vs plain, {value} in a {label} delta", (n_sums,),
+              (fl.fused_match_loss_reference(n_att, n_bbx, *n_anc, n_gt, n_w),), 1e-4 * float(n_sums[0]))
+        n_grad = torch.tensor([0.4, 1.3, 0.0], device=dev)
+        n_got = fl.fused_match_loss_backward(n_att, n_bbx, *n_anc, n_gt, n_w, n_best, n_grad)
+        _held(f"K2 vs plain, {value} in a {label} delta", n_got,
+              fl.fused_match_loss_backward_reference(n_att, n_bbx, *n_anc, n_gt, n_w, n_grad), 1e-6)
+        r, a = c["at"]
+        elem = float(n_got[1][r, a, 1])
+        if not (np.isnan(float(n_sums[1])) and (np.isnan(elem) if label == "positive" else elem == 0.0)):
+            raise AssertionError(f"{value} in a {label} delta: box sum {float(n_sums[1])}, dbbx there {elem}")
+        log(f"K1/K2 with {value} in a {label} anchor's delta: box sum {float(n_sums[1])}, dbbx there {elem} "
+            "(as the plain version and the JAX kernel)")
 
     a1, b1 = att.clone().requires_grad_(), bbx.clone().requires_grad_()
     fl.zsg_loss_fused(a1, b1, anc, gt, sample_weight=w)["total"].backward()
@@ -193,33 +209,50 @@ def check_fused_loss_backward(anchors_cthw: np.ndarray) -> dict:
     log(f"K1+K2 Function gradients vs autograd of the plain forward: max abs error {fn_err:.3e}")
     if fn_err > 1e-6:
         raise AssertionError(f"the Function's gradients differ from autograd by {fn_err} (atol 1e-6)")
-
-    b, a = att.shape
-    call = lambda: fl.fused_match_loss_backward(att, bbx, *anc, gt, w, best, grad)  # noqa: E731
-    ms = cuda_ms(call)
-    plain_ms = cuda_ms(lambda: fl.fused_match_loss_backward_reference(att, bbx, *anc, gt, w, grad))
-    kernels = device_kernels(call, 20)
-    device_ms = sum(t for _, t, _ in kernels)
-    n_bytes = 2 * b * a * (4 + 16) + a * 32 + b * (16 + 4 + 4) + 3 * 4
-    bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
-    ops_ms = b * a * K2_OPS_PER_ELEMENT / H100_F32_OPS_PER_S * 1e3
-    log(f"K2 B={b} A={a}: {ms:.4f} ms per call back to back, device {device_ms:.4f} ms "
-        f"({[(k[:40], round(t, 5), n) for k, t, n in kernels]}), plain {plain_ms:.4f} ms, "
-        f"bound {max(bytes_ms, ops_ms) * 1e3:.3f} us ({n_bytes / 1e6:.2f} MB)")
     return {
         "name": "fused_match_loss_bwd",
         "route": "cuda",
         "source": "zsgnet_tpu_torch/csrc/fused_loss.cu",
         "replaces": "zsgnet_tpu/ops/pallas/fused_loss.py:199",
         "launches": 0,
-        "max_abs_err": err,
-        "ms": ms,
-        "device_ms": device_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "max_abs_err": max(err, p_err),
         "library_ms": None,
     }
+
+
+def loss_timings(k1: dict, k2: dict) -> None:
+    """Phase 3c: K1 and K2's kernels timed side by side on the same inputs
+    through ``zsgnet_tpu_torch.tools.bench_loss``; fills their entries of
+    the kernels line."""
+    from zsgnet_tpu_torch.tools.bench_loss import bench
+
+    r = bench(BATCH)
+    b, a = r["shape"]
+
+    def bound(n_bytes: int, ops: int) -> tuple[float, str]:
+        bytes_ms, ops_ms = n_bytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_OPS_PER_S * 1e3
+        return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+    k1["bound_ms"], k1["bound_by"] = bound(r["k1_bytes"], b * a * K1_OPS_PER_ELEMENT)
+    k2["bound_ms"], k2["bound_by"] = bound(r["k2_bytes"], b * a * K2_OPS_PER_ELEMENT + r["positives"] * K2_OPS_PER_POSITIVE)
+    k2["bound_ref_ms"] = r["k2_bytes_every_anchor"] / H100_BYTES_PER_S * 1e3
+    k1.update(ms=r["k1_ms"], device_ms=r["k1_device_ms"], plain_ms=r["k1_plain_ms"])
+    k2.update(ms=r["k2_ms"], device_ms=r["k2_device_ms"], plain_ms=r["k2_plain_ms"], kernel=r["k2_kernel"],
+              **{k: v for k, v in r.items() if k.startswith("k2_") and k.endswith("device_ms") and k != "k2_device_ms"})
+    log(f"K1 B={b} A={a}: {r['k1_ms']:.4f} ms per call back to back, device {r['k1_device_ms']:.4f} ms, plain "
+        f"{r['k1_plain_ms']:.4f} ms, bound {k1['bound_ms'] * 1e3:.3f} us by {k1['bound_by']} "
+        f"({r['k1_bytes'] / 1e6:.2f} MB), {k1['bound_ms'] / r['k1_device_ms']:.1%} of it reached")
+    side = ", ".join(f"{k[3:-10]} {r[k]:.4f}" for k in r if k.startswith("k2_") and k.endswith("_device_ms")
+                     and k != "k2_device_ms")
+    log(f"K2 B={b} A={a} ({r['positives']} positive anchors): kernel {r['k2_kernel']}, {r['k2_ms']:.4f} ms per call "
+        f"back to back, device {r['k2_device_ms']:.4f} ms; side by side on the card: {side} ms; plain "
+        f"{r['k2_plain_ms']:.4f} ms; bound {k2['bound_ms'] * 1e3:.3f} us by {k2['bound_by']} "
+        f"({r['k2_bytes'] / 1e6:.2f} MB), {k2['bound_ms'] / r['k2_device_ms']:.1%} of it reached; bound counting "
+        f"bbx and cthw at every anchor {k2['bound_ref_ms'] * 1e3:.3f} us ({r['k2_bytes_every_anchor'] / 1e6:.2f} MB), "
+        f"{k2['bound_ref_ms'] / r['k2_device_ms']:.1%}")
+    if not r["k2_device_ms"] < r["k2_elementwise_device_ms"]:
+        raise AssertionError(f"K2 ({r['k2_device_ms']} ms on the card) is not faster than the elementwise kernel "
+                             f"({r['k2_elementwise_device_ms']} ms) in the same run")
 
 
 def check_small_against_cpu() -> None:
@@ -568,6 +601,7 @@ def main() -> int:
     # Phase 3: the kernels against their plain versions, at the main path's shapes.
     k1 = check_fused_loss(anchors)
     k2 = check_fused_loss_backward(anchors)
+    loss_timings(k1, k2)
     check_small_against_cpu()
 
     with tempfile.TemporaryDirectory() as tmp:

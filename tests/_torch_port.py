@@ -88,67 +88,3 @@ def port_model(tcfg, variables, vocab_size: int):
     model = ZSGNet(tcfg, vocab_size)
     model.load_state_dict(state_dict_from_jax(variables, tcfg))
     return model.eval()
-
-
-def k1_promotion_case(b: int, a: int = 5003, seed: int = 0) -> dict[str, np.ndarray]:
-    """Seeded inputs of the fused loss (K1) whose rows decide on the argmax
-    anchor: shared by the CPU tests against the JAX package and the CUDA
-    tests against the plain version.
-
-    ``a`` small anchors (sides up to 0.06) lie on a grid; a few larger ones
-    (side 0.2) are planted at chosen indices, and each row's gt box is a
-    shifted copy of one of them, so that anchor alone has a large IoU with
-    it (a small anchor inside it has at most 0.09). At most 36 rows. Row
-    kinds, by ``row % 4``:
-
-    0. the best anchor has IoU ≈ 0.33, under ``match_thr`` 0.5, and lies in
-       the ``1 + (row // 4) % 7``-th eighth of the anchors (never the
-       first): it is positive only because it is the argmax;
-    1. two identical anchors in different eighths tie for the maximum, also
-       under ``match_thr``: the lower index is the argmax;
-    2. a gt box of zero extent: every IoU is 0 and anchor 0 is the argmax;
-    3. the best anchor has IoU ≈ 0.72, over ``match_thr``.
-
-    Every fifth row (``row % 5 == 4``) has weight 0. Returns anchors_cthw
-    (a, 4), att (b, a), bbx (b, a, 4), gt (b, 4) tlbr, w (b,) and best (b,),
-    the argmax anchors the rows were built to have.
-    """
-    if b > 36:
-        raise ValueError("k1_promotion_case places at most 36 rows")
-    rng = np.random.default_rng(seed)
-    eighth = -(-a // 8)
-    side = int(np.ceil(np.sqrt(a)))
-    cy, cx = np.divmod(np.arange(a), side)
-    centers = np.stack([cy, cx], axis=1) / (side - 1) * 1.8 - 0.9
-    anchors = np.concatenate([centers, rng.uniform(0.02, 0.06, size=(a, 2))], axis=1)
-    gt = np.zeros((b, 4))
-    best = np.zeros((b,), np.int64)
-    for row in range(b):
-        kind = row % 4
-        # A planted anchor of side 0.2 of this row's own, clear of the others' gt boxes.
-        center = np.array([-0.75 + 0.3 * (row % 6), -0.75 + 0.3 * (row // 6)])
-        first = (1 + (row // 4) % 7) * eighth + 11 + row
-        if kind == 2:
-            gt[row] = (0.3, 0.3, 0.3, 0.3)
-            best[row] = 0
-            continue
-        anchors[first] = (*center, 0.2, 0.2)
-        best[row] = first
-        if kind == 1:
-            second = min(first + 2 * eighth, a - 1 - row) if first + 2 * eighth < a else first - eighth
-            anchors[second] = anchors[first]
-            best[row] = min(first, second)
-        # gt = the planted box shifted along y by d: IoU = (0.2 - d) / (0.2 + d).
-        d = 0.1 if kind in (0, 1) else 0.032
-        gt[row] = (center[0] - 0.1 + d, center[1] - 0.1, center[0] + 0.1 + d, center[1] + 0.1)
-    w = np.ones((b,))
-    w[4::5] = 0.0
-    f32 = np.float32
-    return {
-        "anchors_cthw": anchors.astype(f32),
-        "att": (rng.normal(size=(b, a)) * 2).astype(f32),
-        "bbx": rng.normal(size=(b, a, 4)).astype(f32),
-        "gt": gt.astype(f32),
-        "w": w.astype(f32),
-        "best": best,
-    }

@@ -6,7 +6,11 @@ Each kernel is held against its plain PyTorch version on the same card.
 K1: ``num_pos`` exact, the two sums to rtol 1e-4 (float32 sums in another
 order), the argmax anchors exact, one kernel launch per call,
 bit-identical on repeat. K2: atol 1e-6 on gradients of order 1
-(elementwise float32; exp and pow round differently from torch's). K3:
+(elementwise float32; exp and pow round differently from torch's), every
+kernel of its source, one launch per call, bit-identical on repeat. K1 and
+K2 on non-finite logits and deltas: NaN where the plain version has NaN,
+the same tolerances elsewhere (the plain version is held against the JAX
+kernel in tests/test_torch_loss_nonfinite.py). K3:
 atol/rtol 2e-2 (below), bit-identical on repeat, for the Hopper (wgmma)
 kernel at ResNet-50 layer1 widths and the mma.sync kernel elsewhere, and
 the two against each other.
@@ -141,8 +145,8 @@ def test_backward_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 
 def _case(dev, b, a, seed=0):
-    """tests/_torch_port.k1_promotion_case on the card → (att, bbx, anchors, gt, w, best)."""
-    from _torch_port import k1_promotion_case
+    """zsgnet_tpu_torch.tools.loss_cases.k1_promotion_case on the card → (att, bbx, anchors, gt, w, best)."""
+    from zsgnet_tpu_torch.tools.loss_cases import k1_promotion_case
 
     c = k1_promotion_case(b, a, seed)
     att, bbx, gt, w = (torch.from_numpy(c[k]).to(dev) for k in ("att", "bbx", "gt", "w"))
@@ -221,6 +225,92 @@ def test_kernel_is_one_launch_per_call(cuda):
         torch.cuda.synchronize()
     kernels = [(e.key, e.count) for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     assert len(kernels) == 1 and kernels[0][1] == 5, kernels
+
+
+# B = 1, 16 and 33 rows of the promotion case (promoted argmax anchors, ties
+# across the row, zero-extent boxes, zero weights) at anchor counts that no
+# tile of 256 anchors or vector width divides.
+@pytest.mark.parametrize("b", [1, 16, 33])
+@pytest.mark.parametrize("a", [2051, 17451])
+def test_backward_kernels_match_plain_version_and_each_other(cuda, b, a):
+    att, bbx, anc, gt, w, best = _case(cuda, b, a, seed=a + b)
+    grad = torch.tensor([0.3, -1.1, 0.0], device=cuda)
+    want = fl.fused_match_loss_backward_reference(att, bbx, *anc, gt, w, grad)
+    launches = fl.fused_match_loss_backward.launches
+    got = fl.fused_match_loss_backward(att, bbx, *anc, gt, w, best, grad)
+    assert fl.fused_match_loss_backward.launches == launches + 1
+    outs = {v: fl.launch_bwd_variant(v, att, bbx, *anc, gt, w, best, grad) for v in fl.BWD_VARIANTS}
+    torch.cuda.synchronize()
+    assert fl.fused_match_loss_backward.launches == launches + 1  # named launches count none
+    assert all(torch.equal(x, y) for x, y in zip(outs[fl.BWD_KERNEL], got))
+    for v, out in outs.items():
+        for g, x, y in zip(out, want, got):
+            torch.testing.assert_close(g, x, atol=1e-6, rtol=0, msg=lambda m: f"{v} vs plain: {m}")
+            torch.testing.assert_close(g, y, atol=1e-6, rtol=0, msg=lambda m: f"{v} vs {fl.BWD_KERNEL}: {m}")
+    pos = fl._labels(anc[0], gt, 0.5, 0.4)[0]
+    assert bool((got[1][~pos] == 0).all()) and bool((got[1][pos] != 0).any())
+
+
+def test_backward_kernels_take_powf_for_other_gamma(cuda):
+    att, bbx, anc, gt, w, best = _case(cuda, 16, 2051, seed=5)
+    grad = torch.tensor([0.7, 0.4, 0.0], device=cuda)
+    hp = dict(match_thr=0.5, neg_thr=0.4, alpha=0.5, gamma=1.5)
+    want = fl.fused_match_loss_backward_reference(att, bbx, *anc, gt, w, grad, **hp)
+    for v in fl.BWD_VARIANTS:
+        got = fl.launch_bwd_variant(v, att, bbx, *anc, gt, w, best, grad, **hp)
+        for g, x in zip(got, want):
+            torch.testing.assert_close(g, x, atol=1e-6, rtol=0)
+
+
+def test_backward_kernels_are_deterministic(cuda):
+    att, bbx, anc, gt, w, best = _case(cuda, 33, 17451, seed=6)
+    grad = torch.tensor([0.1, 0.2, 0.0], device=cuda)
+    for v in fl.BWD_VARIANTS:
+        first = fl.launch_bwd_variant(v, att, bbx, *anc, gt, w, best, grad)
+        again = fl.launch_bwd_variant(v, att, bbx, *anc, gt, w, best, grad)
+        assert all(torch.equal(x, y) for x, y in zip(again, first)), v
+
+
+def test_backward_kernel_is_one_launch_per_call(cuda):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    att, bbx, anc, gt, w = _inputs(cuda, 16)
+    _, best = fl._launch_fwd(att, bbx, *anc, gt, w, 0.5, 0.4, 0.25, 2.0)
+    grad = torch.tensor([0.1, 0.2, 0.0], device=cuda)
+    fl.fused_match_loss_backward(att, bbx, *anc, gt, w, best, grad)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fl.fused_match_loss_backward(att, bbx, *anc, gt, w, best, grad)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and kernels[0][1] == 5 and "match_loss_grads_pos_only" in kernels[0][0], kernels
+
+
+NONFINITE = [(v, x, lab, wt) for v in ("nan", "inf", "-inf") for x in ("att", "bbx")
+             for lab in ("positive", "promoted", "ignored", "negative") for wt in (1.0, 0.0)]
+
+
+@pytest.mark.parametrize("value,where,label,weight", NONFINITE,
+                         ids=[f"{v}-{x}-{lab}-w{int(wt)}" for v, x, lab, wt in NONFINITE])
+def test_kernels_on_nonfinite_inputs_match_plain_version(cuda, value, where, label, weight):
+    """K1's sums and K2's gradients where a logit or a delta is NaN or
+    infinite: non-finite exactly where the plain version is (a non-finite
+    delta at a non-positive anchor makes K1's box sum NaN, K2's dbbx there 0)."""
+    from zsgnet_tpu_torch.tools.loss_cases import nonfinite_case
+
+    c = nonfinite_case(float(value), where, label, weight)
+    att, bbx, gt, w = (torch.from_numpy(c[k]).to(cuda) for k in ("att", "bbx", "gt", "w"))
+    anc = fl.pack_anchors(c["anchors_cthw"], cuda)
+    sums, best = fl._launch_fwd(att, bbx, *anc, gt, w, 0.5, 0.4, 0.25, 2.0)
+    want = fl.fused_match_loss_reference(att, bbx, *anc, gt, w)
+    np.testing.assert_allclose(sums.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=0, equal_nan=True)
+    grad = torch.tensor([0.4, 1.3, 0.0], device=cuda)
+    got = fl.fused_match_loss_backward(att, bbx, *anc, gt, w, best, grad)
+    want = fl.fused_match_loss_backward_reference(att, bbx, *anc, gt, w, grad)
+    for g, x in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), x.cpu().numpy(), atol=1e-6, rtol=0, equal_nan=True)
 
 
 # ------------------------------------------------------------------ K3

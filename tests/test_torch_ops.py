@@ -165,12 +165,12 @@ def test_fused_loss_force_best_tie_break():
 def test_fused_loss_promotion_and_ties_match_jax(a):
     """Rows whose positives hang on the argmax anchor (a best anchor under
     match_thr in a later eighth of the anchors, equal maxima in two eighths,
-    a zero-extent box, zero-weight rows; tests/_torch_port.k1_promotion_case,
+    a zero-extent box, zero-weight rows; zsgnet_tpu_torch.tools.loss_cases.k1_promotion_case,
     which the CUDA tests of K1 share): the plain version finds the anchors
     the case was built to have and agrees with the JAX Pallas kernel in
     interpret mode (num_pos exact, the sums to rtol 1e-5: float32 sums in
     another order)."""
-    from _torch_port import k1_promotion_case
+    from zsgnet_tpu_torch.tools.loss_cases import k1_promotion_case
 
     case = k1_promotion_case(8, a, seed=a)
     anchors, att, bbx, gt, w = (case[k] for k in ("anchors_cthw", "att", "bbx", "gt", "w"))
@@ -194,7 +194,7 @@ def test_fused_loss_promotion_and_ties_match_jax(a):
 
 def test_fused_loss_zero_weight_rows_add_nothing():
     """Rows of weight 0 leave the three sums untouched (the case's rows 4, 9, ...)."""
-    from _torch_port import k1_promotion_case
+    from zsgnet_tpu_torch.tools.loss_cases import k1_promotion_case
 
     case = k1_promotion_case(10, 2051, seed=1)
     packed = t_fused.pack_anchors(case["anchors_cthw"], "cpu")

@@ -60,6 +60,7 @@ def _entry_points():
     from zsgnet_tpu_torch.parallel.train_step import make_compute_loss, make_eval_step, make_train_step
     from zsgnet_tpu_torch.predict import Grounder
     from zsgnet_tpu_torch.tools.bench_bottleneck import bench
+    from zsgnet_tpu_torch.tools.bench_loss import bench as bench_loss
     from zsgnet_tpu_torch.train.learner import Learner
 
     cfg = Config(resize_img=(64, 64), fpn_ch=16, head_ch=16, emb_dim=8, lstm_dim=8)
@@ -74,11 +75,13 @@ def _entry_points():
         "Learner": lambda: Learner("uid", None, cfg),
         "main_dist": lambda: main_dist("uid", ds_to_use="synthetic", data_dir="no_such_dir"),
         "bench_bottleneck": lambda: bench(2),
+        "bench_loss": lambda: bench_loss(2),
     }
 
 
 @pytest.mark.parametrize("name", ["get_default_net", "make_eval_step", "make_compute_loss", "Grounder",
-                                  "make_train_step", "Learner", "main_dist", "bench_bottleneck"])
+                                  "make_train_step", "Learner", "main_dist", "bench_bottleneck",
+                                  "bench_loss"])
 def test_entry_points_raise_without_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

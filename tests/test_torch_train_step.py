@@ -126,6 +126,16 @@ def test_backward_matches_jax_pallas_vjp(weights, monkeypatch):
     np.testing.assert_allclose(b.grad.numpy(), np.asarray(want[1]), atol=1e-6, rtol=0)
 
 
+def test_backward_kernel_by_name_refuses_cpu_tensors_and_unknown_names():
+    anchors, att, bbx, gt = _loss_inputs(np.random.default_rng(23))
+    args = (_t(att), _t(bbx), *fl.pack_anchors(anchors, "cpu"), _t(gt), torch.ones(len(gt)),
+            torch.zeros(len(gt), dtype=torch.int32), torch.ones(3))
+    with pytest.raises(ValueError, match="unknown K2 kernel"):
+        fl.launch_bwd_variant("rows3", *args)
+    with pytest.raises(ValueError, match="runs a CUDA kernel"):
+        fl.launch_bwd_variant("elementwise", *args)
+
+
 # --------------------------------------------------------------- schedule
 
 

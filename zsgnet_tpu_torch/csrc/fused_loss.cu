@@ -32,17 +32,40 @@
 // into out. A share longer than kKeepMax anchors (rows of more than 65536
 // anchors) is not kept: the second pass computes its IoUs again.
 //
-// K2 replaces fused_loss.py::_bwd_kernel (launched by _vjp_bwd). It is
-// elementwise over a (anchor block, row) grid, one thread per anchor: it
-// recomputes the IoU, labels and targets and writes
-// datt = g_cls * focal'(x) * valid * w and dbbx = g_box * smoothL1'(d) * pos * w
-// (closed forms of _focal_grad_tile and _smooth_l1_and_grad). Each thread
-// loads one float4 each of bbx and both anchor arrays and stores one float4
-// of dbbx; no atomics, no reduction, so it is deterministic. The upstream
+// K2 replaces fused_loss.py::_bwd_kernel (launched by _vjp_bwd): datt =
+// g_cls * focal'(x) * valid * w and dbbx = g_box * smoothL1'(d) * pos * w
+// (closed forms of _focal_grad_tile and _smooth_l1_and_grad). The upstream
 // gradient (g_cls, g_box, g_num_pos) is read from device memory, so the
-// backward never waits on the host. Bound: B*A*(4 + 16) bytes read and
-// written each plus A*32 of anchors (11.7 MB at B = 16, A = 17451), 3.5 us
-// at 3.35 TB/s; its arithmetic is a few dozen float operations per anchor.
+// backward never waits on the host; no atomics, no reduction, so it is
+// deterministic. Both kernels take one thread per (row, anchor), 256
+// anchors a block: grid (69, 16) at B = 16, A = 17451.
+// match_loss_grads_pos_only is the one the wrapper launches. At every (row, anchor) it computes the IoU
+// (without the division where the boxes do not meet), the labels and datt
+// (one exp serves the sigmoid and the log1p; gamma 2 takes no powf) and
+// stores dbbx = 0 with one 16-byte store; only at a positive anchor does it
+// load the delta and the anchor's cthw and compute the targets and the
+// smooth-L1 gradient. A grid of one wave of resident blocks, each thread
+// taking one anchor over a group of 2 or 4 rows (its tlbr read once for the
+// group), was slower on the card: there is about one (row, anchor) per
+// resident thread, and a thread's rows run one after the other.
+// match_loss_grads is the first kernel (the whole closed form at every
+// anchor), kept to be timed beside it; it gives what the JAX kernel gives on
+// finite inputs only.
+//
+// K2's bound: what the function needs is att and the anchors' tlbr read,
+// datt and dbbx written, and the delta and the cthw of positive anchors read:
+// B*A*(4 + 4 + 16) + A*16 bytes plus 32 per positive (6.98 MB at B = 16,
+// A = 17451), 2.1 us at 3.35 TB/s. Its arithmetic per (row, anchor) (an IEEE
+// division for the IoU, one for the sigmoid, an exp and a log1p) is a few
+// dozen operations, far under the byte bound at the card's float32 rate; in
+// practice a launch this short is bound by its own latency and issue.
+//
+// Non-finite inputs give what the JAX kernel gives as XLA compiles it: there
+// a product with a 0/1 label becomes a select, so x * pos is 0 at a
+// non-positive anchor whatever x holds, and datt and dbbx are exact zeros
+// where valid and pos are 0, while the forward's loss * pos_w (pos_w = pos
+// * w, no select) turns the box sum NaN when a non-positive anchor's delta is
+// not finite. jnp.sign(NaN) is NaN.
 //
 // K1's bound: each input is read once and three floats are written, so the
 // function moves B*A*20 + A*32 bytes (6.1 MB at B = 16, A = 17451): under
@@ -80,7 +103,7 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kThreads = 256;     // K2: one thread per anchor
+constexpr int kThreads = 256;     // K2: one thread per anchor, 256 anchors a block
 constexpr int kRowThreads = 512;  // K1: threads of a block of a row's cluster (256 and 1024 were slower)
 constexpr int kRowWarps = kRowThreads / 32;
 constexpr int kCluster = 8;   // blocks per row: the portable maximum cluster size
@@ -133,7 +156,8 @@ __device__ __forceinline__ float iou_tlbr(float4 g, float area_g, float4 t) {
   const float inter = fmaxf(iby - ity, 0.f) * fmaxf(ibx - itx, 0.f);
   const float area_a = fmaxf(t.z - t.x, 0.f) * fmaxf(t.w - t.y, 0.f);
   const float uni = area_g + area_a - inter;
-  return uni > 0.f ? inter / uni : 0.f;
+  // Most anchors do not meet the box: their IoU is 0 without the division.
+  return inter > 0.f && uni > 0.f ? inter / uni : 0.f;
 }
 
 __device__ __forceinline__ float area_tlbr(float4 g) {
@@ -185,16 +209,43 @@ __device__ __forceinline__ float focal_grad(float x, float pos, float alpha, flo
   return alpha_t * (-gamma * powf(one_m, gamma - 1.f) * dpt * bce + powf(one_m, gamma) * (prob - pos));
 }
 
+// d smooth_l1 / d pred as jnp: d / beta inside beta, else sign(d), which is
+// NaN for NaN (torch.sign gives 0 there).
+__device__ __forceinline__ float smooth_l1_grad_sign(float pred, float target, float beta) {
+  const float d = pred - target;
+  if (fabsf(d) < beta) return d / beta;
+  return d > 0.f ? 1.f : (d < 0.f ? -1.f : d);
+}
+
+// d focal / d logit for match_loss_grads_pos_only: the closed form of
+// focal_grad, with one e = exp(-|x|) for both the sigmoid and the log1p,
+// x * pos as a select, and gamma 2 without powf.
+__device__ __forceinline__ float focal_grad_one_exp(float x, bool is_pos, float alpha, float gamma) {
+  const float pos = is_pos ? 1.f : 0.f;
+  const float e = expf(-fabsf(x));
+  const float inv = 1.f / (1.f + e);
+  const float prob = x >= 0.f ? inv : e * inv;
+  const float p_t = prob * pos + (1.f - prob) * (1.f - pos);
+  const float alpha_t = alpha * pos + (1.f - alpha) * (1.f - pos);
+  const float bce = fmaxf(x, 0.f) - (is_pos ? x : 0.f) + log1pf(e);
+  const float one_m = 1.f - p_t;
+  const float dpt = (2.f * pos - 1.f) * prob * (1.f - prob);
+  const float m1 = gamma == 2.f ? one_m : powf(one_m, gamma - 1.f);
+  const float m2 = gamma == 2.f ? one_m * one_m : powf(one_m, gamma);
+  return alpha_t * (-gamma * m1 * dpt * bce + m2 * (prob - pos));
+}
+
 // One anchor's weighted terms, added to (cls, box, npos).
 __device__ __forceinline__ void add_anchor_terms(float iou, bool is_best, float x, float4 d, float4 c,
                                                  float4 g, float w, const LossParams& p, float& cls,
                                                  float& box, float& npos) {
   const bool is_pos = iou >= p.match_thr || is_best;
+  const bool is_valid = is_pos || iou < p.neg_thr;
   const float pos = is_pos ? 1.f : 0.f;
-  const float valid = (is_pos || iou < p.neg_thr) ? 1.f : 0.f;
 
-  // Sigmoid focal loss, as ops/losses.py::sigmoid_focal_loss.
-  const float bce = fmaxf(x, 0.f) - x * pos + log1pf(expf(-fabsf(x)));
+  // Sigmoid focal loss, as ops/losses.py::sigmoid_focal_loss; x * pos and
+  // focal * valid are selects, as in the JAX kernel (see the top).
+  const float bce = fmaxf(x, 0.f) - (is_pos ? x : 0.f) + log1pf(expf(-fabsf(x)));
   const float prob = 1.f / (1.f + expf(-x));
   const float p_t = prob * pos + (1.f - prob) * (1.f - pos);
   const float alpha_t = p.alpha * pos + (1.f - p.alpha) * (1.f - pos);
@@ -202,12 +253,16 @@ __device__ __forceinline__ void add_anchor_terms(float iou, bool is_best, float 
   // gamma 2, the recipe's: the plain version's pow(x, 2) is x * x as well.
   const float mod = p.gamma == 2.f ? one_m * one_m : powf(one_m, p.gamma);
   const float focal = alpha_t * mod * bce;
-  cls += focal * valid * w;
+  cls += (is_valid ? focal : 0.f) * w;
 
   // The box terms carry the factor pos: a few anchors in ten thousand are
-  // positive, and only they pay for the targets' logarithms and divisions
-  // (for the others the plain version adds an exact 0).
-  if (!is_pos) return;
+  // positive, and only they pay for the targets' logarithms and divisions.
+  // For the others the plain version adds loss * 0: an exact 0, or NaN where
+  // the delta is not finite.
+  if (!is_pos) {
+    if (!(isfinite(d.x) && isfinite(d.y) && isfinite(d.z) && isfinite(d.w))) box = __int_as_float(0x7fffffff);
+    return;
+  }
   const float4 t4 = reg_targets(g, c);
   const float pos_w = pos * w;
   box += (smooth_l1(d.x, t4.x, p.beta) + smooth_l1(d.y, t4.y, p.beta) +
@@ -344,8 +399,9 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kRowThreads) 
   if (threadIdx.x == 0) *counter = 0;  // ready for the next call on this stream
 }
 
-// K2. Block (anchor block, row), one thread per anchor. best_idx is K1's
-// best_out; grad_out = (g_cls, g_box, g_num_pos) lives on the device.
+// K2's first kernel. Block (anchor block, row), one thread per anchor.
+// best_idx is K1's best_out; grad_out = (g_cls, g_box, g_num_pos) lives on
+// the device.
 __global__ void __launch_bounds__(kThreads) match_loss_grads(
     const float* __restrict__ att, const float4* __restrict__ bbx,
     const float4* __restrict__ anc_tlbr, const float4* __restrict__ anc_cthw,
@@ -376,6 +432,39 @@ __global__ void __launch_bounds__(kThreads) match_loss_grads(
                         g_box * smooth_l1_grad(d.y, t4.y, p.beta) * pos * w,
                         g_box * smooth_l1_grad(d.z, t4.z, p.beta) * pos * w,
                         g_box * smooth_l1_grad(d.w, t4.w, p.beta) * pos * w);
+}
+
+// K2, the kernel the wrapper launches. Block (anchor block, row), one
+// thread per anchor, as match_loss_grads; the box work only at positives.
+__global__ void __launch_bounds__(kThreads) match_loss_grads_pos_only(
+    const float* __restrict__ att, const float4* __restrict__ bbx,
+    const float4* __restrict__ anc_tlbr, const float4* __restrict__ anc_cthw,
+    const float4* __restrict__ gt, const float* __restrict__ weight,
+    const int* __restrict__ best_idx, const float* __restrict__ grad_out,
+    float* __restrict__ datt, float4* __restrict__ dbbx, int num_anchors, LossParams p) {
+  const int row = blockIdx.y;
+  const int a = blockIdx.x * kThreads + threadIdx.x;
+  if (a >= num_anchors) return;
+  const float4 g = gt[row];
+  const float w = weight[row];
+  const size_t i = static_cast<size_t>(row) * num_anchors + a;
+  const float x = att[i];  // loaded before the IoU, not under the label's branch
+  const float iou = iou_tlbr(g, area_tlbr(g), anc_tlbr[a]);
+  const bool is_pos = iou >= p.match_thr || a == best_idx[row];
+  const bool is_valid = is_pos || iou < p.neg_thr;
+  datt[i] = (is_valid ? grad_out[0] * focal_grad_one_exp(x, is_pos, p.alpha, p.gamma) : 0.f) * w;
+  if (!is_pos) {
+    const float z = 0.f * w;
+    dbbx[i] = make_float4(z, z, z, z);
+    return;
+  }
+  const float g_box = grad_out[1];
+  const float4 d = bbx[i];
+  const float4 t4 = reg_targets(g, anc_cthw[a]);
+  dbbx[i] = make_float4((g_box * smooth_l1_grad_sign(d.x, t4.x, p.beta)) * w,
+                        (g_box * smooth_l1_grad_sign(d.y, t4.y, p.beta)) * w,
+                        (g_box * smooth_l1_grad_sign(d.z, t4.z, p.beta)) * w,
+                        (g_box * smooth_l1_grad_sign(d.w, t4.w, p.beta)) * w);
 }
 
 }  // namespace
@@ -415,17 +504,20 @@ int zsg_match_loss_fwd(const void* att, const void* bbx, const void* anc_tlbr,
 }
 
 // K2: datt (B, A) and dbbx (B, A, 4) from the K1 inputs, K1's best_out and
-// the upstream gradient grad_out (3 floats on the device). Returns the CUDA
-// error code of the launch (0 on success).
-int zsg_match_loss_bwd(const void* att, const void* bbx, const void* anc_tlbr,
+// the upstream gradient grad_out (3 floats on the device), by the kernel
+// `kernel` names: 0 match_loss_grads_pos_only, 1 match_loss_grads. Returns
+// the CUDA error code of the launch (0 on success).
+int zsg_match_loss_bwd(int kernel, const void* att, const void* bbx, const void* anc_tlbr,
                        const void* anc_cthw, const void* gt, const void* weight,
                        const void* best, const void* grad_out, void* datt, void* dbbx,
                        int batch, int num_anchors, float match_thr, float neg_thr, float alpha,
                        float gamma, float beta, void* stream) {
-  if (batch <= 0 || batch > 65535 || num_anchors <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (batch <= 0 || batch > 65535 || num_anchors <= 0 || kernel < 0 || kernel > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const LossParams p{match_thr, neg_thr, alpha, gamma, beta};
   const dim3 grid((num_anchors + kThreads - 1) / kThreads, batch);
-  match_loss_grads<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto* launch = kernel == 0 ? match_loss_grads_pos_only : match_loss_grads;
+  launch<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(att), static_cast<const float4*>(bbx),
       static_cast<const float4*>(anc_tlbr), static_cast<const float4*>(anc_cthw),
       static_cast<const float4*>(gt), static_cast<const float*>(weight),

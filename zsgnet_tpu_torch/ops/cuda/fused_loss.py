@@ -19,8 +19,17 @@ residual; the Function saves it so that K2 searches nothing. The plain
 versions recompute it with ``argmax``. K1 is one launch of one thread-block
 cluster per row; its cross-row sum is taken by the last cluster to finish,
 found with an integer ticket that this module keeps per device and stream.
-``fused_match_loss.launches`` and ``fused_match_loss_backward.launches``
-count kernel launches.
+K2 is one launch, a thread per (row, anchor); :func:`launch_bwd_variant`
+runs any of its kernels by name (``BWD_VARIANTS``) for timing them side by
+side. ``fused_match_loss.launches`` and ``fused_match_loss_backward.launches``
+count kernel launches (the named launches count none).
+
+Non-finite logits and deltas give what the JAX kernel gives as XLA compiles
+it, where a product with a 0/1 label is a select: ``x·pos`` in the
+cross-entropy is 0 at a non-positive anchor whatever ``x`` holds, the focal
+term of an ignored anchor and both gradients where ``valid`` or ``pos`` is 0
+are exact zeros, the box sum's ``loss·pos·w`` is NaN when a non-positive
+anchor's delta is not finite, and ``sign(NaN)`` is NaN.
 """
 
 from __future__ import annotations
@@ -31,7 +40,7 @@ import numpy as np
 import torch
 
 from zsgnet_tpu_torch.ops import boxes as box_ops
-from zsgnet_tpu_torch.ops.losses import sigmoid_focal_loss, smooth_l1
+from zsgnet_tpu_torch.ops.losses import smooth_l1
 
 Tensor = torch.Tensor
 
@@ -46,13 +55,24 @@ def pack_anchors(anchors_cthw: np.ndarray | Tensor, device: str | torch.device) 
 
 
 def _labels(anchors_tlbr: Tensor, gt: Tensor, match_thr: float, neg_thr: float) -> tuple[Tensor, Tensor]:
-    """(pos, valid) float (B, A) masks: positive at IoU ≥ match_thr or at the
+    """(pos, valid) bool (B, A) masks: positive at IoU ≥ match_thr or at the
     row's argmax-IoU anchor (the first of tied maxima), ignored in between."""
     iou = box_ops.iou_pairwise(gt[:, None, :], anchors_tlbr)[:, 0, :]
     best = iou.argmax(dim=-1, keepdim=True)
     is_best = torch.zeros_like(iou, dtype=torch.bool).scatter(-1, best, True)
     pos_b = (iou >= match_thr) | is_best
-    return pos_b.float(), (pos_b | (iou < neg_thr)).float()
+    return pos_b, pos_b | (iou < neg_thr)
+
+
+def _focal_parts(x: Tensor, pos_b: Tensor, alpha: float) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """(pos, p, p_t, alpha_t, bce) of the sigmoid focal loss as the JAX kernel
+    computes them (``_focal_tile``), with ``x·pos`` a select."""
+    pos = pos_b.float()
+    p = torch.sigmoid(x)
+    p_t = p * pos + (1.0 - p) * (1.0 - pos)
+    alpha_t = alpha * pos + (1.0 - alpha) * (1.0 - pos)
+    bce = x.clamp(min=0.0) - torch.where(pos_b, x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+    return pos, p, p_t, alpha_t, bce
 
 
 def fused_match_loss_reference(
@@ -62,9 +82,11 @@ def fused_match_loss_reference(
 ) -> Tensor:
     """Plain PyTorch version of K1: the same labels, losses and weights, as
     dense tensors. Returns (3,) float32 [cls_sum, box_sum, num_pos]."""
-    pos, valid = _labels(anchors_tlbr, gt, match_thr, neg_thr)
+    pos_b, valid_b = _labels(anchors_tlbr, gt, match_thr, neg_thr)
     w = w.float()[:, None]
-    cls_sum = (sigmoid_focal_loss(att, pos, alpha, gamma) * valid * w).sum()
+    pos, _, p_t, alpha_t, bce = _focal_parts(att.float(), pos_b, alpha)
+    focal = alpha_t * torch.pow(1.0 - p_t, gamma) * bce
+    cls_sum = (torch.where(valid_b, focal, 0.0) * w).sum()
     targets = box_ops.bbox_to_reg_params(anchors_cthw[None], gt[:, None, :])
     pos_w = pos * w
     box_sum = (smooth_l1(bbx, targets, BETA) * pos_w[..., None]).sum()
@@ -81,24 +103,22 @@ def fused_match_loss_backward_reference(
 
     grad (3,) is the upstream gradient of (cls_sum, box_sum, num_pos);
     num_pos depends on no input that has a gradient. Returns datt (B, A)
-    = g_cls·focal'(x)·valid·w and dbbx (B, A, 4) = g_box·smoothL1'(d)·pos·w.
+    = g_cls·focal'(x)·valid·w and dbbx (B, A, 4) = g_box·smoothL1'(d)·pos·w,
+    with ``valid`` and ``pos`` as selects.
     """
-    pos, valid = _labels(anchors_tlbr, gt, match_thr, neg_thr)
+    pos_b, valid_b = _labels(anchors_tlbr, gt, match_thr, neg_thr)
     w = w.float()[:, None]
-    x = att.float()
-    p = torch.sigmoid(x)
-    p_t = p * pos + (1.0 - p) * (1.0 - pos)
-    alpha_t = alpha * pos + (1.0 - alpha) * (1.0 - pos)
-    bce = x.clamp(min=0.0) - x * pos + torch.log1p(torch.exp(-x.abs()))
+    pos, p, p_t, alpha_t, bce = _focal_parts(att.float(), pos_b, alpha)
     one_m = 1.0 - p_t
     dpt = (2.0 * pos - 1.0) * p * (1.0 - p)
     focal_grad = alpha_t * (
         -gamma * torch.pow(one_m, gamma - 1.0) * dpt * bce + torch.pow(one_m, gamma) * (p - pos)
     )
-    datt = grad[0] * focal_grad * valid * w
+    datt = torch.where(valid_b, grad[0] * focal_grad, 0.0) * w
     d = bbx.float() - box_ops.bbox_to_reg_params(anchors_cthw[None], gt[:, None, :])
-    sl1_grad = torch.where(d.abs() < BETA, d / BETA, torch.sign(d))
-    dbbx = grad[1] * sl1_grad * pos[..., None] * w[..., None]
+    sign = torch.where(d.isnan(), d, torch.sign(d))  # jnp.sign(NaN) is NaN, torch.sign(NaN) 0
+    sl1_grad = torch.where(d.abs() < BETA, d / BETA, sign)
+    dbbx = torch.where(pos_b[..., None], grad[1] * sl1_grad, 0.0) * w[..., None]
     return datt, dbbx
 
 
@@ -110,7 +130,7 @@ def _lib() -> ctypes.CDLL:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.zsg_match_loss_fwd.argtypes = [ptr] * 10 + [i32, i32] + [f32] * 5 + [ptr]
         lib.zsg_match_loss_fwd.restype = i32
-        lib.zsg_match_loss_bwd.argtypes = [ptr] * 10 + [i32, i32] + [f32] * 5 + [ptr]
+        lib.zsg_match_loss_bwd.argtypes = [i32] + [ptr] * 10 + [i32, i32] + [f32] * 5 + [ptr]
         lib.zsg_match_loss_bwd.restype = i32
         lib._zsg_typed = True
     return lib
@@ -190,12 +210,20 @@ def _launch_fwd(
     return out, best
 
 
+# K2's kernels by name (csrc/fused_loss.cu, zsg_match_loss_bwd): "pos_only",
+# which the backward launches, computes the box gradient at positive anchors
+# only and stores 0 elsewhere; "elementwise" computes the whole closed form
+# at every anchor.
+BWD_VARIANTS = {"pos_only": 0, "elementwise": 1}
+BWD_KERNEL = "pos_only"
+
+
 def _launch_bwd(
     att: Tensor, bbx: Tensor, anchors_tlbr: Tensor, anchors_cthw: Tensor, gt: Tensor,
     w: Tensor, best: Tensor, grad: Tensor, match_thr: float, neg_thr: float,
-    alpha: float, gamma: float,
+    alpha: float, gamma: float, variant: str = BWD_KERNEL,
 ) -> tuple[Tensor, Tensor]:
-    """Launch K2 on the current stream → (datt, dbbx)."""
+    """Launch K2's kernel named ``variant`` on the current stream → (datt, dbbx)."""
     b, a = _check_inputs(att, bbx, anchors_tlbr, anchors_cthw, gt, w)
     dev = att.device
     _check("best", best, (b,), torch.int32, dev)
@@ -205,14 +233,30 @@ def _launch_bwd(
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.zsg_match_loss_bwd(
-            att.data_ptr(), bbx.data_ptr(), anchors_tlbr.data_ptr(), anchors_cthw.data_ptr(),
-            gt.data_ptr(), w.data_ptr(), best.data_ptr(), grad.data_ptr(),
+            BWD_VARIANTS[variant], att.data_ptr(), bbx.data_ptr(), anchors_tlbr.data_ptr(),
+            anchors_cthw.data_ptr(), gt.data_ptr(), w.data_ptr(), best.data_ptr(), grad.data_ptr(),
             datt.data_ptr(), dbbx.data_ptr(), b, a,
             match_thr, neg_thr, alpha, gamma, BETA, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_loss backward kernel launch failed with CUDA error {err}")
     return datt, dbbx
+
+
+def launch_bwd_variant(
+    variant: str, att: Tensor, bbx: Tensor, anchors_tlbr: Tensor, anchors_cthw: Tensor, gt: Tensor,
+    w: Tensor, best: Tensor, grad: Tensor, match_thr: float = 0.5, neg_thr: float = 0.4,
+    alpha: float = 0.25, gamma: float = 2.0,
+) -> tuple[Tensor, Tensor]:
+    """K2's kernel named ``variant`` (a key of ``BWD_VARIANTS``) on CUDA
+    tensors, for timing the kernels side by side; counts no launch. The
+    elementwise kernel gives what the JAX kernel gives on finite inputs only."""
+    if variant not in BWD_VARIANTS:
+        raise ValueError(f"unknown K2 kernel {variant!r}, expected one of {sorted(BWD_VARIANTS)}")
+    if att.device.type != "cuda":
+        raise ValueError(f"launch_bwd_variant runs a CUDA kernel, not on {att.device}")
+    return _launch_bwd(att, bbx, anchors_tlbr, anchors_cthw, gt, w, best, grad.float().contiguous(),
+                       match_thr, neg_thr, alpha, gamma, variant)
 
 
 def _device_kind(att: Tensor) -> str:
