@@ -16,7 +16,14 @@ and last layer1 of the same model through the fused inference bottleneck
 ``mma.sync`` kernel, same inputs, same run). The loss kernels K1 and K2
 are checked on random inputs, on rows whose positives hang on the argmax
 anchor and on non-finite deltas, and timed side by side through
-``zsgnet_tpu_torch.tools.bench_loss``. Each path is driven with the kernels' launch counts set to 0 just before
+``zsgnet_tpu_torch.tools.bench_loss``. Phase 8 serves the checkpoint that
+phase 6's ``main_dist`` wrote: ``Grounder.from_checkpoint`` on the run
+directory and its ``best/``, the shape buckets and ``ground_image`` against
+the full-batch and per-pair paths (float32), open-vocabulary slots,
+``batch_predict`` grouped against flat, and the HTTP daemon of
+``zsgnet_tpu_torch.serve`` under 32 clients and under a burst with
+``max_queue=4``, then their timings in bf16; no kernel launches there.
+Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after. Every phase is fatal on failure. The
 next-to-last line of standard output is a JSON object describing each
 kernel; the last is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -25,12 +32,18 @@ device it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import base64
 import json
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -372,6 +385,303 @@ def check_training(data_dir: str, run_dir: str) -> tuple[int, int]:
     return launches
 
 
+def _post(url: str, payload: dict) -> tuple[int, dict, dict, float]:
+    """POST /ground → (status, body, headers, seconds)."""
+    req = urllib.request.Request(url + "/ground", data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read()), dict(r.headers), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), dict(e.headers), time.perf_counter() - t0
+
+
+def _serve(grounder, **kw):
+    from zsgnet_tpu_torch.serve import make_server
+
+    srv = make_server(grounder, port=0, **kw)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def _best_anchors(g, images: list, queries: list, pad_to: int, shared: bool = False) -> list[int]:
+    """The flat argmax anchor of each request when the chunk is padded to
+    ``pad_to`` rows (``shared``: one image against the queries, as
+    ``ground_image`` runs it)."""
+    from zsgnet_tpu_torch.predict import encode_queries, load_image, prep_chunk
+
+    if shared:
+        img = load_image(images[0], g.cfg.resize_img)[0][None].copy()
+        qvec, qlens = encode_queries(g.cfg, g.vocab, pad_to, queries)
+    else:
+        img, qvec, qlens, _, _ = prep_chunk(g.cfg, g.vocab, pad_to, images, queries)
+    with torch.inference_mode():
+        att = g.model(torch.from_numpy(img).cuda(), torch.from_numpy(qvec).cuda(), torch.from_numpy(qlens))["att_out"]
+    return att.argmax(dim=-1)[: len(queries)].tolist()
+
+
+def _held_results(name: str, got: list, want: list, anchors: tuple | None = None, tol: float = 1e-4) -> float:
+    """Scores within ``tol``; boxes within ``tol`` (normalized) for every
+    request, or, given (got, want) anchors, wherever both picked the same
+    one. Returns the largest score difference."""
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} results for {len(want)} requests")
+    err = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        d_score = abs(a["score"] - b["score"])
+        d_box = float(np.abs(np.subtract(a["box_norm"], b["box_norm"])).max())
+        err = max(err, d_score)
+        same = anchors is None or anchors[0][i] == anchors[1][i]
+        if d_score > tol or (same and d_box > tol):
+            raise AssertionError(f"{name}, request {i}: {a} vs {b} (score {d_score:.2e}, box {d_box:.2e}, "
+                                 f"tolerance {tol}; anchors {None if anchors is None else (anchors[0][i], anchors[1][i])})")
+    return err
+
+
+def _in_range(name: str, results: list) -> None:
+    boxes = np.array([r["box_norm"] for r in results])
+    scores = np.array([r["score"] for r in results])
+    if not (np.isfinite(boxes).all() and np.isfinite(scores).all() and np.abs(boxes).max() <= 1.0
+            and scores.min() >= 0.0 and scores.max() <= 1.0):
+        raise AssertionError(f"{name}: results out of range {results}")
+
+
+def _median_ms(fn, runs: int = 5) -> float:
+    lat = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(lat)
+
+
+def check_serving(model_dir: Path, data_root: Path, smi: str) -> list[int]:
+    """Phase 8, serving, run after phase 6 on the checkpoint its ``main_dist``
+    wrote: ``Grounder.from_checkpoint`` on the run's model directory and its
+    ``best/`` store, the shape buckets, ``ground_image``, open-vocabulary
+    slots, ``batch_predict`` and the daemon, held against the port's own
+    full-batch and per-pair paths (float32 for exact comparisons: under
+    bf16 cuDNN may pick other algorithms at another batch size), then timed
+    in bf16. K1, K2 and K3 must not launch: returns their launch counts."""
+    from zsgnet_tpu_torch.ops.cuda.fused_bottleneck import fused_bottleneck_infer
+    from zsgnet_tpu_torch.ops.cuda.fused_loss import fused_match_loss, fused_match_loss_backward
+    from zsgnet_tpu_torch.predict import Grounder, batch_predict, prep_chunk
+
+    kernels = (fused_match_loss, fused_match_loss_backward, fused_bottleneck_infer)
+    for k in kernels:
+        k.launches = 0
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    g = Grounder.from_checkpoint(model_dir, batch_size=BATCH, device="cuda")
+    best = Grounder.from_checkpoint(model_dir / "best", batch_size=BATCH, device="cuda")
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g.warmup(multiquery=True)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    best_sd = best.model.state_dict()
+    if not all(torch.equal(v, best_sd[k]) for k, v in g.model.state_dict().items()):
+        raise AssertionError("the run directory and its best/ store served different weights")
+    log(f"serving: Grounder.from_checkpoint of {model_dir.name} and its best/ in {t_load:.2f} s "
+        f"(cfg {g.cfg.resize_img} {g.cfg.compute_dtype}, vocab {len(g.vocab)}, buckets {g.bucket_sizes}); "
+        f"warmup(multiquery=True) in {t_warm:.2f} s")
+    del best, best_sd
+
+    val = pd.read_csv(data_root / "csv_dir" / "val.csv")
+    paths = [data_root / "images" / str(p) for p in val["img_id"]]
+    queries = [str(q) for q in val["query"]]
+    f32 = Grounder.from_checkpoint(model_dir, batch_size=BATCH, cfg_overrides={"compute_dtype": "float32"},
+                                   device="cuda")
+    f32_full = Grounder(f32.cfg, f32.vocab, f32.model.state_dict(), batch_size=BATCH, bucket_sizes=(BATCH,),
+                        device="cuda")
+    g_full = Grounder(g.cfg, g.vocab, g.model.state_dict(), batch_size=BATCH, bucket_sizes=(BATCH,), device="cuda")
+
+    # Buckets: 1, 3 and 16 requests against the same requests padded to 16.
+    for n in (1, 3, BATCH):
+        pad = f32._pad_to(n)
+        anchors = (_best_anchors(f32, paths[:n], queries[:n], pad), _best_anchors(f32, paths[:n], queries[:n], BATCH))
+        err = _held_results(f"float32 bucket {pad} vs full batch", f32.ground(paths[:n], queries[:n]),
+                            f32_full.ground(paths[:n], queries[:n]), anchors)
+        got, want = g.ground(paths[:n], queries[:n]), g_full.ground(paths[:n], queries[:n])
+        _in_range(f"bf16 bucket {pad}", got)
+        bf_err = max(abs(a["score"] - b["score"]) for a, b in zip(got, want))
+        bf_box = max(float(np.abs(np.subtract(a["box_norm"], b["box_norm"])).max()) for a, b in zip(got, want))
+        log(f"serving: {n} request(s) through bucket {pad} vs padded to {BATCH}: float32 max score diff {err:.2e} "
+            f"({sum(a == b for a, b in zip(*anchors))}/{n} same anchor); bf16 max score diff {bf_err:.2e}, "
+            f"max box diff {bf_box:.2e}")
+
+    # Multi-query: one image against 5 queries vs the image tiled 5 times.
+    mq = queries[:5]
+    img = paths[0]
+    anchors = (_best_anchors(f32, [img], mq, 8, shared=True), _best_anchors(f32, [img] * 5, mq, 8))
+    err = _held_results("float32 ground_image vs tiled ground", f32.ground_image(img, mq),
+                        f32.ground([img] * 5, mq), anchors)
+    got = g.ground_image(img, mq)
+    _in_range("bf16 ground_image", got)
+    bf_err = max(abs(a["score"] - b["score"]) for a, b in zip(got, g.ground([img] * 5, mq)))
+    log(f"serving: ground_image of 5 queries vs ground of the image tiled 5 times: float32 max score diff "
+        f"{err:.2e} ({sum(a == b for a, b in zip(*anchors))}/5 same anchor); bf16 max score diff {bf_err:.2e}")
+
+    # Open vocabulary: 8 slots, two unseen words, rows as the host computes them.
+    oov = Grounder.from_checkpoint(model_dir, batch_size=BATCH, oov_slots=8, device="cuda")
+    n_vocab = len(oov.vocab)
+    res = oov.ground(paths[:2], ["the zorblax box", "the quuxify ellipse"])
+    _in_range("open vocabulary", res)
+    rows = {w: oov.model.embedding.weight[oov.vocab.word_to_id[w]].detach().cpu().numpy()
+            for w in ("zorblax", "quuxify")}
+    for w, row in rows.items():
+        want = np.random.default_rng(zlib.crc32(w.encode())).normal(0, oov._emb_scale, row.shape[0]).astype(np.float32)
+        if not np.array_equal(row, want):
+            raise AssertionError(f"open vocabulary: the row of {w!r} on the card is not the seeded row")
+    if len(oov.vocab) != n_vocab + 2 or np.array_equal(rows["zorblax"], rows["quuxify"]):
+        raise AssertionError(f"open vocabulary: vocab {n_vocab} -> {len(oov.vocab)}, rows distinct "
+                             f"{not np.array_equal(rows['zorblax'], rows['quuxify'])}")
+    log(f"serving: oov_slots=8 gave 'zorblax' and 'quuxify' ids {n_vocab} and {n_vocab + 1}, distinct seeded "
+        f"rows (scale {oov._emb_scale:.4f}); scores {[round(r['score'], 5) for r in res]}")
+    del oov
+
+    # Bulk: the val split as it is, and its 40 queries over 10 of its images.
+    with tempfile.TemporaryDirectory() as out:
+        out = Path(out)
+        grouped_csv = out / "grouped.csv"
+        val.assign(img_id=[val["img_id"][i - i % 4] for i in range(len(val))]).to_csv(grouped_csv, index=False)
+        for csv in (data_root / "csv_dir" / "val.csv", grouped_csv):
+            t0 = time.perf_counter()
+            n_g = batch_predict(f32, csv, data_root / "images", out / "g.jsonl", grouped=True)
+            t_g = time.perf_counter() - t0
+            n_f = batch_predict(f32, csv, data_root / "images", out / "f.jsonl", grouped=False)
+            rows_g = [json.loads(x) for x in (out / "g.jsonl").read_text().splitlines()]
+            rows_f = [json.loads(x) for x in (out / "f.jsonl").read_text().splitlines()]
+            if n_g != n_f or n_g != len(val) or [(r["img_id"], r["query"]) for r in rows_g] != [
+                    (r["img_id"], r["query"]) for r in rows_f]:
+                raise AssertionError(f"batch_predict on {csv.name}: rows {n_g} grouped, {n_f} flat")
+            err = _held_results(f"batch_predict on {csv.name}, grouped vs flat", rows_g, rows_f)
+            log(f"serving: batch_predict {csv.name} ({n_g} rows, {len(set(r['img_id'] for r in rows_g))} images), "
+                f"grouped vs flat, float32: max score diff {err:.2e}; grouped {t_g:.3f} s")
+
+    # The daemon: 32 clients, four request forms, float32 answers against ground.
+    pool_pairs = list(zip(paths[:BATCH], queries[:BATCH]))
+    one = [f32.ground([p], [q])[0] for p, q in pool_pairs]
+    full = f32.ground(paths[:BATCH], queries[:BATCH])
+    stable = [i for i in range(BATCH)
+              if float(np.abs(np.subtract(one[i]["box_norm"], full[i]["box_norm"])).max()) <= 1e-4]
+    if len(stable) < BATCH // 2:
+        raise AssertionError(f"only {len(stable)} of {BATCH} requests ground alike at batch 1 and {BATCH}")
+    mq_want = {i: f32.ground([paths[i]] * 3, [queries[j] for j in stable[:3]]) for i in stable}
+    b64 = {i: base64.b64encode(paths[i].read_bytes()).decode() for i in stable}
+
+    def client(c: int) -> list:
+        out = []
+        for r in range(4):
+            i = stable[(c * 4 + r) % len(stable)]
+            form = (c + r) % 4
+            if form == 0:
+                payload, want = {"query": queries[i], "image_path": str(paths[i])}, one[i]
+            elif form == 1:
+                payload, want = {"query": queries[i], "image_b64": b64[i]}, one[i]
+            elif form == 2:
+                ids = [stable[(c + r + k) % len(stable)] for k in range(3)]
+                payload = {"requests": [{"query": queries[j], "image_path": str(paths[j])} for j in ids]}
+                want = [one[j] for j in ids]
+            else:
+                payload = {"queries": [queries[j] for j in stable[:3]], "image_path": str(paths[i])}
+                want = mq_want[i]
+            code, body, _, _ = _post(url, payload)
+            out.append((form, code, body, want))
+        return out
+
+    srv, url = _serve(f32, window_ms=5.0)
+    try:
+        with ThreadPoolExecutor(32) as ex:
+            answers = [a for res in ex.map(client, range(32)) for a in res]
+        with urllib.request.urlopen(url + "/statz", timeout=30) as r:
+            statz = json.loads(r.read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    for form, code, body, want in answers:
+        if code != 200:
+            raise AssertionError(f"daemon form {form}: status {code}, {body}")
+        got = body["results"] if form >= 2 else [body]
+        _held_results(f"daemon form {form} vs Grounder.ground", got, want if isinstance(want, list) else [want])
+    if not statz["mean_batch_fill"] > 1 or statz["errors"]:
+        raise AssertionError(f"daemon /statz {statz}")
+    log(f"serving: daemon answered {len(answers)} requests from 32 clients (path, b64, requests list, queries), "
+        f"all 200 and equal to Grounder.ground (float32); {len(stable)}/{BATCH} inputs in the pool; /statz {statz}")
+
+    srv, url = _serve(f32, window_ms=5.0, max_queue=4)
+    try:
+        burst = {"requests": [{"query": queries[i], "image_path": str(paths[i])} for i in stable[:3]]}
+        with ThreadPoolExecutor(16) as ex:
+            shed = list(ex.map(lambda _: _post(url, burst), range(16)))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    codes = [c for c, *_ in shed]
+    if set(codes) - {200, 503} or 503 not in codes or any(
+            h.get("Retry-After") != "1" for c, _, h, _ in shed if c == 503):
+        raise AssertionError(f"max_queue=4 under a burst of 16: statuses {codes}")
+    log(f"serving: max_queue=4 under a burst of 16 three-pair requests: {codes.count(200)} answered, "
+        f"{codes.count(503)} shed with 503 and Retry-After: 1")
+    del f32, f32_full
+
+    launches = [k.launches for k in kernels]
+    if any(launches):
+        raise AssertionError(f"the serving paths launched (K1, K2, K3) {launches} times")
+
+    # Timings, bf16.
+    torch.cuda.synchronize()
+    per_bucket = {n: _median_ms(lambda n=n: g.ground(paths[:n], queries[:n])) for n in (1, 2, 4, 8, BATCH)}
+    full_one = _median_ms(lambda: g_full.ground(paths[:1], queries[:1]))
+    t_mq = _median_ms(lambda: g.ground_image(img, mq))
+    t_tiled = _median_ms(lambda: g.ground([img] * 5, mq))
+    log(f"serving timings on {smi} (bf16, B={BATCH}, median of 5, host clock, PNG decode included): ground per bucket "
+        + ", ".join(f"{n}: {t:.3f} ms" for n, t in per_bucket.items())
+        + f"; 1 request padded to {BATCH} (bucket_sizes=({BATCH},)): {full_one:.3f} ms; ground_image of 5 "
+        f"queries {t_mq:.3f} ms vs ground of 5 tiled {t_tiled:.3f} ms ({t_mq / t_tiled:.2f}x)")
+    for n in (1, BATCH):
+        kern = device_kernels(lambda n=n: g.ground(paths[:n], queries[:n]), 3)
+        busy = sum(t for _, t, _ in kern)
+        prep = _median_ms(lambda n=n: prep_chunk(g.cfg, g.vocab, g._pad_to(n), paths[:n], queries[:n]))
+        log(f"serving breakdown on {smi}, ground of {n} request(s): device {busy:.3f} ms in "
+            f"{sum(c for *_, c in kern):.0f} kernel launches, host PNG decode and padding {prep:.3f} ms, "
+            f"wall {per_bucket[n]:.3f} ms (device idle {1 - busy / per_bucket[n]:.1%})")
+    srv, url = _serve(g, window_ms=5.0)
+    try:
+        seen = {"requests": 0, "batches": 0}
+        for clients, per in ((16, 8), (64, 4)):
+            def run(c: int, per=per) -> list[float]:
+                lat = []
+                for r in range(per):
+                    i = (c * per + r) % len(paths)
+                    code, _, _, dt = _post(url, {"query": queries[i], "image_path": str(paths[i])})
+                    if code != 200:
+                        raise AssertionError(f"daemon timing request: status {code}")
+                    lat.append(dt * 1e3)
+                return lat
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(clients) as ex:
+                lat = sorted(x for res in ex.map(run, range(clients)) for x in res)
+            wall = time.perf_counter() - t0
+            with urllib.request.urlopen(url + "/statz", timeout=30) as r:
+                statz = json.loads(r.read())
+            fill = (statz["requests"] - seen["requests"]) / (statz["batches"] - seen["batches"])
+            seen = statz
+            log(f"serving daemon on {smi} (bf16, batch {BATCH}, window 5 ms, image_path form): {clients} clients x {per} "
+                f"requests: {len(lat) / wall:.1f} pairs/s, p50 {lat[len(lat) // 2]:.3f} ms, p95 "
+                f"{lat[int(len(lat) * 0.95)]:.3f} ms, max {lat[-1]:.3f} ms; mean batch fill {fill:.2f}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    launches = [k.launches for k in kernels]
+    if any(launches):
+        raise AssertionError(f"the serving paths launched (K1, K2, K3) {launches} times")
+    log(f"serving phase passed in {time.perf_counter() - t_phase:.1f} s; K1, K2, K3 launches in it {launches}")
+    return launches
+
+
 # (B, H, W, Cin, Cmid, Cout, projection, x dtype, kernel): the main path's two
 # blocks, layer1 widths with ragged tiles on both axes (and B = 1, and sides
 # under a tile), float32 x at layer1 width, and two odd small shapes.
@@ -685,8 +995,13 @@ def main() -> int:
         # Phase 6: training.
         k1["launches"], k2["launches"] = check_training(tmp, str(Path(tmp) / "run"))
 
-    # Phase 7: K3, this slice's path.
+        # Phase 8: serving the checkpoint phase 6 wrote.
+        serving_launches = check_serving(Path(tmp) / "run" / "models" / "smoke", root, smi)
+
+    # Phase 7: K3 on layer1.
     k3 = check_bottleneck()
+    for k, n in zip((k1, k2, k3), serving_launches):
+        k["serving_launches"] = n
     log(f"every phase passed in {time.perf_counter() - t_start:.1f} s, the kernels' build included")
 
     print(smi, flush=True)

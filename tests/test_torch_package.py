@@ -44,7 +44,27 @@ def test_import_loads_no_jax_and_no_jax_package():
     assert len(_modules()) >= 15
 
 
-@pytest.mark.parametrize("path", [*sorted(PKG.rglob("*.py")), ROOT / "chip_smoke.py"],
+def test_serving_modules_load_no_jax():
+    code = (
+        "import sys\n"
+        "import zsgnet_tpu_torch.serve, zsgnet_tpu_torch.predict\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'zsgnet_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+SOURCES = [*sorted(PKG.rglob("*.py")), ROOT / "chip_smoke.py"]
+
+
+def test_source_scan_covers_the_serving_modules():
+    assert {PKG / "serve.py", PKG / "predict.py", PKG / "convert.py",
+            PKG / "data" / "embeddings.py"} <= set(SOURCES)
+
+
+@pytest.mark.parametrize("path", SOURCES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_name_no_jax(path):
     text = path.read_text()
@@ -59,6 +79,9 @@ def _entry_points():
     from zsgnet_tpu_torch.main import main_dist
     from zsgnet_tpu_torch.parallel.train_step import make_compute_loss, make_eval_step, make_train_step
     from zsgnet_tpu_torch.predict import Grounder
+    from zsgnet_tpu_torch.predict import main as predict_main
+    from zsgnet_tpu_torch.serve import load_server_model
+    from zsgnet_tpu_torch.serve import main as serve_main
     from zsgnet_tpu_torch.tools.bench_bottleneck import bench
     from zsgnet_tpu_torch.tools.bench_loss import bench as bench_loss
     from zsgnet_tpu_torch.train.learner import Learner
@@ -76,12 +99,17 @@ def _entry_points():
         "main_dist": lambda: main_dist("uid", ds_to_use="synthetic", data_dir="no_such_dir"),
         "bench_bottleneck": lambda: bench(2),
         "bench_loss": lambda: bench_loss(2),
+        "Grounder.from_checkpoint": lambda: Grounder.from_checkpoint("no_such_dir"),
+        "load_server_model": lambda: load_server_model("no_such_dir"),
+        "serve.main": lambda: serve_main(["no_such_dir", "--port=0"]),
+        "predict.main": lambda: predict_main(["no_such_dir", "no_such.png", "the red box"]),
     }
 
 
 @pytest.mark.parametrize("name", ["get_default_net", "make_eval_step", "make_compute_loss", "Grounder",
                                   "make_train_step", "Learner", "main_dist", "bench_bottleneck",
-                                  "bench_loss"])
+                                  "bench_loss", "Grounder.from_checkpoint", "load_server_model",
+                                  "serve.main", "predict.main"])
 def test_entry_points_raise_without_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -274,7 +274,7 @@ def test_validation_uses_ema_weights_with_live_bn_stats(synth_root, tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("glove_path", "glove.txt"), ("remat_backbone", True), ("queries_per_img", 2), ("mesh_spatial", 2),
+    ("remat_backbone", True), ("queries_per_img", 2), ("mesh_spatial", 2),
 ])
 def test_unported_options_raise(synth_root, tmp_path, key, value):
     cfg = tiny_cfg(synth_root, tmp_path, **{key: value})

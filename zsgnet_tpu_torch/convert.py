@@ -1,4 +1,17 @@
-"""JAX variables → the port's ``state_dict``.
+"""Checkpoint conversion into the port: JAX variables → ``state_dict``, and
+a reference ``.pth`` → a port checkpoint directory.
+
+    python -m zsgnet_tpu_torch.convert <ref.pth> <out_dir> [--vocab=vocab.json] [--key=val ...]
+
+reads a reference (``zsgnet-pytorch``) checkpoint — a bare state dict, a
+trainer dict with ``model_state_dict``/``model``/``state_dict``/``mdl``, or a
+whole saved module, with or without DDP's ``module.`` — detects where its
+subtrees live (``detect_layout``, printed), maps them onto the port's names,
+loads what matches by name and shape over a fresh ``ZSGNet`` and writes
+``step_0.pt`` and ``cfg.json`` (and ``vocab.json`` with ``--vocab=``), which
+``Grounder.from_checkpoint`` and ``main --resume`` read. ``--backbone_prefix=``
+and the other layout keys override what was detected; every other
+``--key=val`` is a Config override.
 
 ``state_dict_from_jax`` takes the JAX ``ZSGNet``'s ``{"params",
 "batch_stats"}`` tree (leaves as numpy arrays) and returns a ``state_dict``
@@ -17,12 +30,19 @@ for ``models.zsgnet.ZSGNet``. It is the inverse of
 
 from __future__ import annotations
 
+import json
+import re
+import shutil
+import sys
+from pathlib import Path
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 
-from zsgnet_tpu_torch.config import Config
+from zsgnet_tpu_torch.config import Config, get_default_cfg
+from zsgnet_tpu_torch.models.zsgnet import get_default_net
+from zsgnet_tpu_torch.train.checkpoint import CheckpointManager, partial_load
 
 # The port's FPN module names (reference lineage) for the JAX FPN's names.
 FPN_NAME_MAP = {
@@ -105,3 +125,149 @@ def state_dict_from_jax(variables: Mapping[str, Any], cfg: Config) -> dict[str, 
     sd["head.out.weight"] = _conv(k_out)
     sd["head.out.bias"] = _t(b_out)
     return sd
+
+
+# Where the port's state_dict keeps each subtree that detect_layout finds.
+PORT_LAYOUT = {
+    "backbone_prefix": "backbone.encoder.",
+    "fpn_prefix": "backbone.fpn.",
+    "lstm_prefix": "lstm.",
+    "embed_key": "embedding.weight",
+    "head_conv_prefixes": ("head.conv0", "head.conv1", "head.conv2", "head.conv3", "head.out"),
+}
+
+
+def detect_layout(sd: Mapping[str, Any]) -> dict[str, Any]:
+    """Subtree prefixes from a state dict's key structure: backbone_prefix,
+    fpn_prefix, lstm_prefix, embed_key, head_conv_prefixes and num_anchors
+    (None or empty where not found)."""
+    keys = list(sd.keys())
+
+    def find_prefix(marker: str) -> str | None:
+        for k in keys:
+            i = k.find(marker)
+            if i >= 0:
+                return k[:i]
+        return None
+
+    backbone = find_prefix("layer1.0.conv1.weight")  # ResNet-50 body
+    lstm = find_prefix("weight_ih_l0")
+    embed_key = next((k for k in keys if re.search(r"emb\w*\.weight$", k)
+                      and getattr(sd[k], "ndim", 0) == 2), None)
+    fpn = find_prefix("latlayer1.weight")
+    # The head: a group of convs whose last (out) has 5·A output channels.
+    head_prefixes: tuple[str, ...] = ()
+    num_anchors = None
+    conv_groups: dict[str, list[str]] = {}
+    for k in keys:
+        m = re.match(r"(.*\.)((?:conv\d+|out|att_reg_box))\.weight$", k)
+        if m and getattr(sd[k], "ndim", 0) == 4:
+            conv_groups.setdefault(m.group(1), []).append(m.group(2))
+    for prefix, names in conv_groups.items():
+        if backbone and prefix.startswith(backbone):
+            continue
+        out_name = "out" if "out" in names else ("att_reg_box" if "att_reg_box" in names else None)
+        convs = sorted(n for n in names if n.startswith("conv"))
+        if out_name and convs:
+            oc = sd[f"{prefix}{out_name}.weight"].shape[0]
+            if oc % 5 == 0:
+                head_prefixes = tuple(f"{prefix}{n}" for n in convs) + (f"{prefix}{out_name}",)
+                num_anchors = oc // 5
+                break
+    return {
+        "backbone_prefix": backbone,
+        "fpn_prefix": fpn,
+        "lstm_prefix": lstm,
+        "embed_key": embed_key,
+        "head_conv_prefixes": head_prefixes,
+        "num_anchors": num_anchors,
+    }
+
+
+def unwrap_state_dict(obj: Any) -> Mapping[str, Any]:
+    """A ``torch.save`` payload → a flat state dict (a trainer dict's model
+    entry, a whole module's state dict, DDP's ``module.`` removed)."""
+    sd = obj
+    if isinstance(obj, dict) and not any(hasattr(v, "shape") for v in obj.values()):
+        for key in ("model_state_dict", "model", "state_dict", "mdl"):
+            if key in obj:
+                sd = obj[key]
+                break
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    if any(k.startswith("module.") for k in sd):
+        sd = {k.removeprefix("module."): v for k, v in sd.items()}
+    return sd
+
+
+def to_port_names(sd: Mapping[str, Any], layout: Mapping[str, Any]) -> dict[str, Any]:
+    """Rename the detected subtrees of ``sd`` onto ``PORT_LAYOUT``; keys in no
+    detected subtree keep their names. The most specific prefix wins: the
+    head's convs, the LSTM, the FPN, then the backbone, whose prefix may be
+    empty."""
+    head = tuple(layout["head_conv_prefixes"] or ())
+    port_head = PORT_LAYOUT["head_conv_prefixes"]
+    prefixes = [(p + ".", q + ".") for p, q in zip(head[:-1], port_head[:-1])]
+    if head:
+        prefixes.append((head[-1] + ".", port_head[-1] + "."))
+    prefixes += [(layout[k], PORT_LAYOUT[k]) for k in ("lstm_prefix", "fpn_prefix", "backbone_prefix")
+                 if layout[k] is not None]
+    out: dict[str, Any] = {}
+    for k, v in sd.items():
+        if k == layout["embed_key"]:
+            k = PORT_LAYOUT["embed_key"]
+        else:
+            src, dst = next(((s, d) for s, d in prefixes if k.startswith(s)), ("", ""))
+            k = dst + k[len(src):]
+        out[k] = v
+    return out
+
+
+def main(argv: list[str] | None = None) -> dict[str, Any]:
+    argv = sys.argv[1:] if argv is None else argv
+    pos = [a for a in argv if not a.startswith("--")]
+    overrides = dict(a[2:].split("=", 1) for a in argv if a.startswith("--") and "=" in a)
+    if len(pos) != 2:
+        raise SystemExit(__doc__)
+    pth, out_dir = Path(pos[0]), Path(pos[1])
+    sd = unwrap_state_dict(torch.load(pth, map_location="cpu", weights_only=False))
+
+    layout = detect_layout(sd)
+    for k in list(layout):
+        if k in overrides:
+            v = overrides.pop(k)
+            layout[k] = (tuple(v.split(",")) if k == "head_conv_prefixes"
+                         else int(v) if k == "num_anchors" else v)
+    print(f"detected layout: {json.dumps(layout, default=list)}")
+    missing = [k for k, v in layout.items() if not v]
+    if missing:
+        print(f"WARNING: could not detect {missing}; those subtrees keep fresh init "
+              "(override with --<name>=...)")
+
+    embed = sd[layout["embed_key"]] if layout["embed_key"] else None
+    vocab_size = int(overrides.pop("vocab_size", embed.shape[0] if embed is not None else 10000))
+    emb_dim = int(embed.shape[1]) if embed is not None else 300
+    vocab_src = overrides.pop("vocab", None)
+    cfg = get_default_cfg().replace(**{"compute_dtype": "float32", "do_dist": False,
+                                       "emb_dim": emb_dim, **overrides})
+    fresh = get_default_net(cfg, vocab_size, device="cpu").state_dict()
+    mapped = {k: torch.as_tensor(v) for k, v in to_port_names(sd, layout).items()}
+    model = partial_load(fresh, mapped)
+    converted = sum(1 for k in fresh if model[k] is not fresh[k])
+
+    CheckpointManager(out_dir).save(0, {"model": model, "best_metric": -1.0})
+    (out_dir / "cfg.json").write_text(cfg.replace(vocab_size=vocab_size).dumps())
+    if vocab_src:
+        shutil.copy(vocab_src, out_dir / "vocab.json")
+    report = {
+        "leaves_total": len(fresh),
+        "leaves_converted": converted,
+        "vocab_size": vocab_size,
+        "out_dir": str(out_dir),
+    }
+    print(json.dumps(report))
+    return report
+
+
+if __name__ == "__main__":
+    main()

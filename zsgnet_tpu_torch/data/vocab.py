@@ -41,6 +41,18 @@ class Vocab:
                 word_to_id[w] = len(word_to_id)
         return cls(word_to_id)
 
+    def add_word(self, word: str) -> int:
+        """Append ``word`` with the next free id and return its id (the id
+        it already has if it is known). Ids only grow, so every query
+        encoded before keeps its ids; the caller keeps the embedding table
+        in step (``predict.Grounder`` reserves its rows up front)."""
+        if word in self.word_to_id:
+            return self.word_to_id[word]
+        idx = len(self.word_to_id)
+        self.word_to_id[word] = idx
+        self.id_to_word[idx] = word
+        return idx
+
     def encode(self, query: str, max_len: int) -> tuple[list[int], int]:
         """→ (padded id list of length max_len, true length ≥ 1)."""
         ids = [self.word_to_id.get(w, UNK_ID) for w in tokenize(query)][:max_len]

@@ -18,6 +18,10 @@ The ``state_dict`` keeps the reference checkpoint's names
 ``zsgnet_tpu/convert/torch_import.py::convert_zsgnet_checkpoint`` maps it onto
 the JAX model unchanged; ``zsgnet_tpu_torch.convert`` goes the other way.
 
+An image batch of 1 against a query batch of N runs the backbone and the
+FPN once and expands each level's features to N rows before the head: the
+same computation as tiling the image N times (``Grounder.ground_image``).
+
 ``cfg.compute_dtype == "bfloat16"`` runs the backbone, FPN and head under
 ``torch.autocast`` on CUDA; the query encoder and the outputs stay float32.
 Not ported yet: the SSD-VGG backbone, per-level heads
@@ -89,7 +93,8 @@ class ZSGNet(nn.Module):
 
     def forward(self, img: Tensor, qvec: Tensor, qlens: Tensor) -> dict:
         """img (B, H, W, 3) uint8 (normalized here, in float32) or float
-        already normalized; qvec (B, T) int; qlens (B,) int."""
+        already normalized, B equal to the query batch or 1; qvec (B, T)
+        int; qlens (B,) int."""
         x = img.permute(0, 3, 1, 2)
         if img.dtype == torch.uint8:
             x = (x.float() / 255.0 - self.img_mean) / self.img_std
@@ -99,12 +104,13 @@ class ZSGNet(nn.Module):
             torch.autocast("cuda", dtype=torch.bfloat16) if bf16 else contextlib.nullcontext()
         )
         q = encode_query(self.embedding, self.lstm, qvec, qlens)  # float32
-        a = self.cfg.num_anchors
+        b, a = q.shape[0], self.cfg.num_anchors
         atts, bbxs, feat_sizes = [], [], []
         with autocast:
             feats = self.backbone["fpn"](*self.backbone["encoder"](x))
             for f in feats:
-                b, _, h, w = f.shape
+                f = f.expand(b, -1, -1, -1)  # a batch-1 image to the query batch
+                _, _, h, w = f.shape
                 lang = q[:, :, None, None].to(f.dtype).expand(b, q.shape[1], h, w)
                 grid = self._grid(h, w, f.device).to(f.dtype).expand(b, 2, h, w)
                 out = self.head(torch.cat([f, lang, grid], dim=1)).float()

@@ -41,7 +41,6 @@ def check_supported(cfg: Config) -> None:
     """Raise for the training options this port does not run yet, naming the
     ROADMAP queue item that ports each."""
     unported = {
-        "glove_path": (bool(cfg.glove_path), "queue 1 item 1 (embeddings)"),
         "remat_backbone": (cfg.remat_backbone, "queue 1 item 2 (remat)"),
         "queries_per_img": (cfg.queries_per_img > 1, "queue 1 item 2 (grouped multi-query)"),
         "mesh_spatial": (cfg.mesh_spatial > 1, "queue 1 item 4 (spatial partitioning)"),

@@ -16,12 +16,14 @@ and ``vocab.json`` beside them. It keeps the JAX Learner's semantics:
 * ``cfg.use_reduce_lr_plateau`` lowers ``lr_scale`` on a plateau of the
   validation Acc;
 * with ``cfg.ema_decay > 0`` validation runs the EMA parameters with the
-  live BatchNorm statistics.
+  live BatchNorm statistics;
+* ``cfg.glove_path`` initializes the embedding from a GloVe file
+  (``data/embeddings.py``) before the optimizer and the EMA are made.
 
 The loss is read back from the device every ``cfg.log_every`` steps, one
 interval late, so the loop never waits on the device for it. Not ported
-yet (they raise): ``glove_path``, ``remat_backbone``, ``queries_per_img >
-1``, ``mesh_spatial > 1``; ``do_dist`` runs on the one device;
+yet (they raise): ``remat_backbone``, ``queries_per_img > 1``,
+``mesh_spatial > 1``; ``do_dist`` runs on the one device;
 ``use_tensorboard`` writes nothing.
 """
 
@@ -37,6 +39,7 @@ import torch
 
 from zsgnet_tpu_torch.config import Config
 from zsgnet_tpu_torch.data.dataset import DataWrap
+from zsgnet_tpu_torch.data.embeddings import load_embedding_table
 from zsgnet_tpu_torch.models.bilstm import fold_lstm_bias_
 from zsgnet_tpu_torch.models.zsgnet import anchor_pyramid_for, get_default_net
 from zsgnet_tpu_torch.parallel.train_step import (
@@ -127,6 +130,11 @@ class Learner:
         self.log_file = self.log_dir / f"{uid}.jsonl"
 
         self.model = get_default_net(cfg, len(data.vocab), seed=cfg.seed, device=self.device)
+        if cfg.glove_path:
+            table, found = load_embedding_table(cfg.glove_path, data.vocab, cfg.emb_dim, cfg.seed)
+            with torch.no_grad():
+                self.model.embedding.weight.copy_(torch.from_numpy(table))
+            print(f"glove init: {found}/{len(data.vocab)} vocab words found")
         self.anchors = anchor_pyramid_for(cfg)
         self.state = create_train_state(cfg, self.model)
         self._train_step = None  # built at first use
