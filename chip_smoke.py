@@ -23,6 +23,11 @@ the full-batch and per-pair paths (float32), open-vocabulary slots,
 ``batch_predict`` grouped against flat, and the HTTP daemon of
 ``zsgnet_tpu_torch.serve`` under 32 clients and under a burst with
 ``max_queue=4``, then their timings in bf16; no kernel launches there.
+Phase 9 drives the model and training variants: grouped multi-query
+training to ``configs/flickr30k_grouped.json`` (24 images × 5 phrases,
+K1/K2 at B = 120 on its outputs, float32 grouped validation against flat,
+the grouped step against a flat step of the same 120 pairs in turns),
+SSD-VGG16 with per-level heads (A = 17460), and remat against no remat.
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after. Every phase is fatal on failure. The
 next-to-last line of standard output is a JSON object describing each
@@ -241,13 +246,8 @@ def loss_timings(k1: dict, k2: dict) -> None:
 
     r = bench(BATCH)
     b, a = r["shape"]
-
-    def bound(n_bytes: int, ops: int) -> tuple[float, str]:
-        bytes_ms, ops_ms = n_bytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_OPS_PER_S * 1e3
-        return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
-
-    k1["bound_ms"], k1["bound_by"] = bound(r["k1_bytes"], b * a * K1_OPS_PER_ELEMENT)
-    k2["bound_ms"], k2["bound_by"] = bound(r["k2_bytes"], b * a * K2_OPS_PER_ELEMENT + r["positives"] * K2_OPS_PER_POSITIVE)
+    k1["bound_ms"], k1["bound_by"] = _bound(r["k1_bytes"], b * a * K1_OPS_PER_ELEMENT)
+    k2["bound_ms"], k2["bound_by"] = _bound(r["k2_bytes"], b * a * K2_OPS_PER_ELEMENT + r["positives"] * K2_OPS_PER_POSITIVE)
     k2["bound_ref_ms"] = r["k2_bytes_every_anchor"] / H100_BYTES_PER_S * 1e3
     k1.update(ms=r["k1_ms"], device_ms=r["k1_device_ms"], plain_ms=r["k1_plain_ms"])
     k2.update(ms=r["k2_ms"], device_ms=r["k2_device_ms"], plain_ms=r["k2_plain_ms"], kernel=r["k2_kernel"],
@@ -871,6 +871,349 @@ def check_bottleneck() -> dict:
     }
 
 
+# ------------------------------------------------------------ phase 9
+
+GROUP_IMAGES, GROUP_Q = 24, 5  # configs/flickr30k_grouped.json: 120 pairs a step
+SSD_ANCHORS = 17460  # (38² + 19² + 10² + 5² + 3² + 1²) · 9 at 300²
+CUDA = torch.device("cuda")
+
+
+def _bound(n_bytes: int, ops: int) -> tuple[float, str]:
+    """The least time for ``n_bytes`` at the card's memory rate and ``ops``
+    float32 operations at its peak, and which of the two bounds it."""
+    bytes_ms, ops_ms = n_bytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def _counts() -> tuple[int, int]:
+    from zsgnet_tpu_torch.ops.cuda.fused_loss import fused_match_loss, fused_match_loss_backward
+
+    return fused_match_loss.launches, fused_match_loss_backward.launches
+
+
+def _zero_counts() -> None:
+    from zsgnet_tpu_torch.ops.cuda.fused_loss import fused_match_loss, fused_match_loss_backward
+
+    fused_match_loss.launches = fused_match_loss_backward.launches = 0
+
+
+def hold_loss_kernels(name: str, cfg, out: dict, annot: torch.Tensor, w: torch.Tensor,
+                      anchors: np.ndarray) -> tuple[float, float]:
+    """K1 and K2 on a model's real outputs against their plain versions on
+    the same inputs (K1: num_pos exact, sums rtol 1e-4; K2: atol 1e-6) and
+    the fused loss against the eager ``losses.zsg_loss`` (rtol 1e-4). These
+    launches count nothing. Returns K1's and K2's max abs errors."""
+    from zsgnet_tpu_torch.ops import anchors as anchor_ops, losses
+    from zsgnet_tpu_torch.ops.cuda import fused_loss as fl
+
+    dev = CUDA
+    att, bbx = out["att_out"].float().contiguous(), out["bbx_out"].float().contiguous()
+    anc = fl.pack_anchors(anchors, dev)
+    hp = (cfg.matching_threshold, cfg.neg_threshold, cfg.focal_alpha, cfg.focal_gamma)
+    got, best = fl._launch_fwd(att, bbx, *anc, annot, w, *hp)
+    want = fl.fused_match_loss_reference(att, bbx, *anc, annot, w, *hp)
+    if float(got[2]) != float(want[2]) or not torch.allclose(got[:2], want[:2], rtol=1e-4, atol=0.0):
+        raise AssertionError(f"{name}: K1 {got.tolist()} != plain {want.tolist()} (rtol 1e-4)")
+    n = got[2].clamp(min=1.0)
+    grad = torch.stack([1.0 / n, cfg.lamb_reg / n, torch.zeros_like(n)])
+    err2 = _held(f"{name} K2", fl.launch_bwd_variant(fl.BWD_KERNEL, att, bbx, *anc, annot, w, best, grad, *hp),
+                 fl.fused_match_loss_backward_reference(att, bbx, *anc, annot, w, grad, *hp), 1e-6)
+    labels, reg_t = anchor_ops.match_and_encode(torch.as_tensor(anchors, device=dev), annot,
+                                                cfg.matching_threshold, cfg.neg_threshold)
+    eager = losses.zsg_loss(att, bbx, labels, reg_t, lamb_reg=cfg.lamb_reg, alpha=cfg.focal_alpha,
+                            gamma=cfg.focal_gamma, sample_weight=w)["total"]
+    fused = got[0] / n + cfg.lamb_reg * got[1] / n
+    if not torch.allclose(fused, eager, rtol=1e-4):
+        raise AssertionError(f"{name}: fused loss {float(fused)} != eager {float(eager)}")
+    err1 = float((got.double() - want.double()).abs().max())
+    log(f"{name}: K1 at B={att.shape[0]} A={att.shape[1]} on the model's outputs {got.tolist()} == plain "
+        f"(max abs err {err1:.3g}, {int(float(got[2]))} weighted positives, {int((w == 0).sum())} rows of "
+        f"weight 0); K2 within {err2:.3g} of plain; loss {float(fused):.6f} == eager {float(eager):.6f}")
+    return err1, err2
+
+
+def variant_loss_timings(r: dict, which: str) -> dict:
+    """K1's or K2's (``which``) numbers from a ``tools/bench_loss.py`` run
+    ``r`` at a variant's shape, with its bound at those inputs."""
+    b, a = r["shape"]
+    if which == "k1":
+        bound_ms, by = _bound(r["k1_bytes"], b * a * K1_OPS_PER_ELEMENT)
+    else:
+        bound_ms, by = _bound(r["k2_bytes"], b * a * K2_OPS_PER_ELEMENT + r["positives"] * K2_OPS_PER_POSITIVE)
+    return {"shape": r["shape"], "ms": r[f"{which}_ms"], "device_ms": r[f"{which}_device_ms"],
+            "plain_ms": r[f"{which}_plain_ms"], "bound_ms": bound_ms, "bound_by": by,
+            "bound_share": bound_ms / r[f"{which}_device_ms"]}
+
+
+def _step_ms(step, state, batch, runs: int) -> tuple[list[float], int]:
+    """Host ms of ``runs`` train steps that each end in a synchronize, and
+    the peak memory allocated over them."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        _, ls = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if not torch.isfinite(ls["total"]):
+            raise AssertionError("non-finite training loss while timing")
+    return times, torch.cuda.max_memory_allocated()
+
+
+def check_grouped(tmp: Path) -> tuple[tuple[int, int], tuple[float, float]]:
+    """Phase 9a: grouped multi-query training to configs/flickr30k_grouped.json
+    (retina, 300², bf16, 24 images × 5 phrases) through ``main_dist`` on
+    all-objects synthetic data (2–4 phrases an image, so every unit wraps),
+    then K1/K2 on the grouped outputs, grouped float32 validation against
+    flat, and the grouped step against a flat step of the same 120 pairs,
+    in turns. Returns the (K1, K2) launches of the ``main_dist`` run and
+    their max abs errors on the outputs."""
+    from zsgnet_tpu_torch.config import get_default_cfg
+    from zsgnet_tpu_torch.data.dataset import get_data
+    from zsgnet_tpu_torch.data.synthetic import generate
+    from zsgnet_tpu_torch.main import main_dist
+    from zsgnet_tpu_torch.models.zsgnet import anchor_pyramid_for
+    from zsgnet_tpu_torch.parallel.train_step import make_train_step, pairs_and_weights, to_device
+    from zsgnet_tpu_torch.train.learner import Learner
+
+    t_phase = time.perf_counter()
+    preset = Path(__file__).resolve().parent / "configs" / "flickr30k_grouped.json"
+    data_dir = tmp / "grouped_data"
+    generate(data_dir, n_train=3 * GROUP_IMAGES, n_val=GROUP_IMAGES, n_test=2, img_size=300,
+             seed=SEED, all_objects=True)
+    run_dir = tmp / "grouped_run"
+    kw = dict(ds_to_use="synthetic", data_dir=str(data_dir), tmp_path=str(run_dir), epochs=1,
+              seed=SEED, log_every=1)
+    cfg = get_default_cfg(preset).replace(uid="grouped", **kw)
+    if (cfg.bs, cfg.queries_per_img, cfg.compute_dtype, cfg.mdl_to_use) != (
+            GROUP_IMAGES, GROUP_Q, "bfloat16", "retina"):
+        raise AssertionError(f"the grouped preset changed: {cfg}")
+    data = get_data(cfg)
+    n_steps, n_val = len(data.train_dl), len(data.valid_dl)
+    _zero_counts()
+    t0 = time.perf_counter()
+    metrics = main_dist("grouped", device=CUDA, cfg_file=str(preset), **kw)
+    torch.cuda.synchronize()
+    launches = _counts()
+    row = json.loads((run_dir / "logs" / "grouped.jsonl").read_text().splitlines()[-1])
+    log(f"grouped main_dist ({cfg.bs} images x {cfg.queries_per_img} phrases, {n_steps} steps, {n_val} val "
+        f"batch(es)) in {time.perf_counter() - t0:.2f} s; K1 launches {launches[0]}, K2 {launches[1]}; "
+        f"log row {row}")
+    if launches != (n_steps + 2 * n_val, n_steps):
+        raise AssertionError(f"grouped (K1, K2) launches {launches}, expected "
+                             f"{(n_steps + 2 * n_val, n_steps)}: one per step and per val batch")
+    if row["step"] != n_steps or not np.isfinite(row["train_total"]) or not all(
+            np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"grouped run: log row {row}, metrics {metrics}")
+
+    # K1 and K2 at B = 120 on the trained model's outputs.
+    anchors = anchor_pyramid_for(cfg)
+    learn = Learner("grouped", data, cfg.replace(resume=True), device=CUDA)
+    vb = data.valid_dl.first_batch()
+    with torch.inference_mode():
+        b = to_device(vb, CUDA)
+        out = learn.model.eval()(b["img"], b["qvec"], b["qlens"])
+        annot, w = pairs_and_weights(b, b["valid"])
+    if tuple(out["att_out"].shape) != (GROUP_IMAGES * GROUP_Q, anchors.shape[0]) or not bool((w == 0).any()):
+        raise AssertionError(f"grouped outputs {tuple(out['att_out'].shape)}, pair weights {w.tolist()}")
+    err = hold_loss_kernels("grouped val batch", cfg, out, annot, w, anchors)
+
+    # Grouped validation in float32 (TF32 off) against the flat loader.
+    cfg32 = cfg.replace(compute_dtype="float32", resume=True)
+    lg = Learner("grouped", get_data(cfg32), cfg32, device=CUDA)
+    cfg_f = cfg32.replace(uid="flat", queries_per_img=1, bs=BATCH,
+                          resume_path=str(run_dir / "models" / "grouped"))
+    lf = Learner("flat", get_data(cfg_f), cfg_f, device=CUDA)
+    mg, mf = lg.validate(), lf.validate()
+    recs = {}
+    for uid in ("grouped", "flat"):
+        rows = [json.loads(x) for x in (run_dir / "predictions" / f"{uid}_val.jsonl").read_text().splitlines()]
+        recs[uid] = {r["id"]: r for r in rows}
+        if len(recs[uid]) != len(rows):
+            raise AssertionError(f"{uid} validation counted a pair twice")
+    iou_diff = max(abs(recs["grouped"][i]["iou"] - recs["flat"][i]["iou"]) for i in recs["flat"])
+    log(f"float32 validation, grouped {mg} vs flat {mf}; per-pair IoU max abs diff {iou_diff:.3g}")
+    if (set(recs["grouped"]) != set(recs["flat"]) or mg["num_samples"] != mf["num_samples"]
+            or (mg["Acc"], mg["MaxPos"]) != (mf["Acc"], mf["MaxPos"]) or iou_diff > 1e-4):
+        raise AssertionError("grouped float32 validation differs from flat")
+    del lg, lf
+
+    # The grouped step against a flat step of the same 120 pairs, in turns.
+    gb = data.train_dl.first_batch()
+    q = GROUP_Q
+    fb = {"img": np.repeat(gb["img"], q, axis=0), "qvec": gb["qvec"].reshape(-1, gb["qvec"].shape[-1]),
+          "qlens": gb["qlens"].reshape(-1), "annot": gb["annot"].reshape(-1, 4)}
+    steps = {"grouped": (make_train_step(cfg, anchors, CUDA), gb),
+             "flat": (make_train_step(cfg.replace(queries_per_img=1, bs=GROUP_IMAGES * q), anchors, CUDA), fb)}
+    state = learn.state
+    res = {k: {"ms": [], "peak": 0} for k in steps}
+    for step, batch in steps.values():
+        _step_ms(step, state, batch, 2)  # warm-up
+    for name in ("grouped", "flat", "flat", "grouped") * 2:
+        times, peak = _step_ms(steps[name][0], state, steps[name][1], 2)
+        res[name]["ms"] += times
+        res[name]["peak"] = max(res[name]["peak"], peak)
+    for name, (step, batch) in steps.items():
+        kernels = device_kernels(lambda: step(state, batch), 3)
+        res[name]["device_ms"] = sum(t for _, t, _ in kernels)
+        res[name]["launches"] = sum(n for *_, n in kernels)
+        res[name]["median"] = statistics.median(res[name]["ms"])
+        log(f"{name} train step, {GROUP_IMAGES * q} pairs ({GROUP_IMAGES if name == 'grouped' else GROUP_IMAGES * q} "
+            f"images) bf16 Adam: median {res[name]['median']:.3f} ms over {len(res[name]['ms'])} steps in turns "
+            f"({[round(t, 2) for t in res[name]['ms']]}); device {res[name]['device_ms']:.3f} ms in "
+            f"{res[name]['launches']:.0f} launches; peak memory {res[name]['peak'] / 2**30:.3f} GiB; "
+            f"top {[(kk[:50], round(t, 3), n) for kk, t, n in kernels[:5]]}")
+    g, f = res["grouped"], res["flat"]
+    log(f"grouped / flat at 120 pairs: wall {g['median'] / f['median']:.3f}x, device "
+        f"{g['device_ms'] / f['device_ms']:.3f}x, pairs/s {120e3 / g['median']:.1f} vs {120e3 / f['median']:.1f}, "
+        f"peak memory {g['peak'] / f['peak']:.3f}x")
+    log(f"grouped phase passed in {time.perf_counter() - t_phase:.1f} s")
+    return launches, err
+
+
+def check_ssd(data_dir: str, tmp: Path) -> tuple[tuple[int, int], tuple[float, float]]:
+    """Phase 9b: SSD-VGG16 at 300², B = 16, bf16, native channels (six
+    per-level heads, A = 17460) through ``main_dist`` on phase 6's data,
+    then K1/K2 on its outputs, its train step and eval step profiled.
+    Returns the (K1, K2) launches of the run and their max abs errors on the
+    outputs."""
+    from zsgnet_tpu_torch.config import get_default_cfg
+    from zsgnet_tpu_torch.data.dataset import get_data
+    from zsgnet_tpu_torch.main import main_dist
+    from zsgnet_tpu_torch.models.zsgnet import anchor_pyramid_for
+    from zsgnet_tpu_torch.parallel.train_step import pairs_and_weights, to_device
+    from zsgnet_tpu_torch.train.learner import Learner
+
+    t_phase = time.perf_counter()
+    kw = dict(ds_to_use="synthetic", data_dir=data_dir, tmp_path=str(tmp / "ssd_run"), epochs=1, bs=BATCH,
+              seed=SEED, log_every=1, mdl_to_use="ssd_vgg")
+    cfg = get_default_cfg().replace(uid="ssd", **kw)
+    anchors = anchor_pyramid_for(cfg)
+    if anchors.shape[0] != SSD_ANCHORS or cfg.ssd_uniform_proj:
+        raise AssertionError(f"SSD pyramid has {anchors.shape[0]} anchors")
+    data = get_data(cfg)
+    n_steps, n_val = len(data.train_dl), len(data.valid_dl)
+    _zero_counts()
+    t0 = time.perf_counter()
+    metrics = main_dist("ssd", device=CUDA, **kw)
+    torch.cuda.synchronize()
+    launches = _counts()
+    log(f"ssd_vgg main_dist ({n_steps} steps, {n_val} val batches) in {time.perf_counter() - t0:.2f} s: "
+        f"{metrics}; K1 launches {launches[0]}, K2 {launches[1]}")
+    if launches != (n_steps + 2 * n_val, n_steps) or not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"ssd (K1, K2) launches {launches}, metrics {metrics}")
+
+    learn = Learner("ssd", data, cfg.replace(resume=True), device=CUDA)
+    heads = [m.conv0.in_channels - cfg.lang_dim - 2 for m in learn.model.heads]
+    if heads != [512, 1024, 512, 256, 256, 256]:
+        raise AssertionError(f"SSD per-level heads see {heads} visual channels")
+    vb = data.valid_dl.first_batch()
+    with torch.inference_mode():
+        b = to_device(vb, CUDA)
+        out = learn.model.eval()(b["img"], b["qvec"], b["qlens"])
+        annot, w = pairs_and_weights(b, b["valid"])
+    err = hold_loss_kernels("ssd val batch", cfg, out, annot, w, anchors)
+
+    tb = data.train_dl.first_batch()
+    step = learn.train_step
+    _step_ms(step, learn.state, tb, 2)
+    times, peak = _step_ms(step, learn.state, tb, 8)
+    kernels = device_kernels(lambda: step(learn.state, tb), 3)
+    busy = sum(t for _, t, _ in kernels)
+    log(f"ssd_vgg train step B={BATCH} bf16 Adam: median {statistics.median(times):.3f} ms "
+        f"({[round(t, 2) for t in times]}); device {busy:.3f} ms in {sum(n for *_, n in kernels):.0f} launches; "
+        f"peak memory {peak / 2**30:.3f} GiB; top {[(k[:50], round(t, 3), n) for k, t, n in kernels[:6]]}")
+    ev = lambda: learn.eval_step(learn.model, vb)  # noqa: E731
+    ev()
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        ev()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    kernels = device_kernels(ev, 3)
+    log(f"ssd_vgg eval step B={BATCH} bf16: median {statistics.median(lat):.3f} ms; device "
+        f"{sum(t for _, t, _ in kernels):.3f} ms in {sum(n for *_, n in kernels):.0f} launches")
+    log(f"ssd phase passed in {time.perf_counter() - t_phase:.1f} s")
+    return launches, err
+
+
+def check_remat(data_dir: str) -> None:
+    """Phase 9c: one retina train step at B = 16 with and without
+    ``remat_backbone`` from the same weights on the same batch. In float32
+    the losses agree within 1e-5 relative and the BatchNorm statistics
+    (running moments within 1e-6, ``num_batches_tracked`` exact); peak
+    memory and step time are logged in float32 and bf16."""
+    from zsgnet_tpu_torch.config import get_default_cfg
+    from zsgnet_tpu_torch.data.dataset import get_data
+    from zsgnet_tpu_torch.models.zsgnet import anchor_pyramid_for, get_default_net
+    from zsgnet_tpu_torch.parallel.train_step import create_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    base = get_default_cfg().replace(ds_to_use="synthetic", data_dir=data_dir, bs=BATCH, seed=SEED)
+    data = get_data(base)
+    batch = data.train_dl.first_batch()
+    anchors = anchor_pyramid_for(base)
+    for dtype in ("float32", "bfloat16"):
+        res = {}
+        for remat in (False, True):
+            cfg = base.replace(compute_dtype=dtype, remat_backbone=remat)
+            model = get_default_net(cfg, len(data.vocab), seed=SEED, device=CUDA)
+            state = create_train_state(cfg, model)
+            step = make_train_step(cfg, anchors, CUDA)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _, ls = step(state, batch)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            stats = {k: v.clone() for k, v in model.state_dict().items() if "running" in k or "tracked" in k}
+            times, _ = _step_ms(step, state, batch, 4)
+            res[remat] = (float(ls["total"]), stats, peak, statistics.median(times))
+            del model, state, step
+        (l0, s0, p0, t0), (l1, s1, p1, t1) = res[False], res[True]
+        diff = max(float((s1[k].double() - s0[k].double()).abs().max()) for k in s0 if "running" in k)
+        log(f"remat {dtype}: loss {l1:.7f} vs {l0:.7f}; BN statistics max abs diff {diff:.3g}; peak memory "
+            f"{p1 / 2**30:.3f} vs {p0 / 2**30:.3f} GiB ({p1 / p0:.3f}x); step median {t1:.3f} vs {t0:.3f} ms")
+        if dtype == "float32":
+            if abs(l1 - l0) > 1e-5 * abs(l0) or diff > 1e-6 or any(
+                    not torch.equal(s1[k], s0[k]) for k in s0 if "tracked" in k):
+                raise AssertionError("remat's step differs from the step without remat")
+            if int(s1["backbone.encoder.bn1.num_batches_tracked"]) != 1:
+                raise AssertionError("remat updated the BatchNorm statistics twice")
+        if not p1 < p0:
+            raise AssertionError(f"remat did not lower the peak memory ({dtype}): {p1} vs {p0}")
+    log(f"remat phase passed in {time.perf_counter() - t_phase:.1f} s")
+
+
+def check_variants(data_dir: str, tmp: Path, k1: dict, k2: dict) -> None:
+    """Phase 9: the model and training variants (grouped, SSD-VGG, remat),
+    each path driven with the kernels' counts set to 0 just before it; K1
+    and K2's launches there, their errors on the real outputs and their
+    times and bounds at the new shapes go into their entries."""
+    from zsgnet_tpu_torch.tools.bench_loss import bench
+
+    t_phase = time.perf_counter()
+    g_launches, g_err = check_grouped(tmp)
+    s_launches, s_err = check_ssd(data_dir, tmp)
+    check_remat(data_dir)
+    r_grouped, r_ssd = bench(GROUP_IMAGES * GROUP_Q), bench(BATCH, mdl_to_use="ssd_vgg")
+    for i, (k, which) in enumerate(((k1, "k1"), (k2, "k2"))):
+        k["grouped_launches"], k["ssd_launches"] = g_launches[i], s_launches[i]
+        k["variant_shapes"] = {
+            "grouped_b120_a17451": {**variant_loss_timings(r_grouped, which), "max_abs_err_real_outputs": g_err[i]},
+            "ssd_b16_a17460": {**variant_loss_timings(r_ssd, which), "max_abs_err_real_outputs": s_err[i]},
+        }
+    for name, v in k1["variant_shapes"].items():
+        w = k2["variant_shapes"][name]
+        log(f"K1 at {v['shape']}: device {v['device_ms']:.4f} ms ({v['ms']:.4f} back to back), plain "
+            f"{v['plain_ms']:.4f} ms, bound {v['bound_ms'] * 1e3:.3f} us by {v['bound_by']} "
+            f"({v['bound_share']:.1%}); K2: device {w['device_ms']:.4f} ms ({w['ms']:.4f}), plain "
+            f"{w['plain_ms']:.4f} ms, bound {w['bound_ms'] * 1e3:.3f} us by {w['bound_by']} ({w['bound_share']:.1%})")
+    log(f"variants phase passed in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -997,6 +1340,9 @@ def main() -> int:
 
         # Phase 8: serving the checkpoint phase 6 wrote.
         serving_launches = check_serving(Path(tmp) / "run" / "models" / "smoke", root, smi)
+
+        # Phase 9: grouped multi-query training, SSD-VGG, remat.
+        check_variants(tmp, Path(tmp), k1, k2)
 
     # Phase 7: K3 on layer1.
     k3 = check_bottleneck()

@@ -43,6 +43,23 @@ def random_batch(rng: np.random.Generator, b: int, cfg, vocab_size: int) -> dict
     }
 
 
+def grouped_batch(rng: np.random.Generator, cfg, b: int, q: int, vocab_size: int) -> dict[str, np.ndarray]:
+    """b images with q queries each; image 1's last query repeats its first
+    (a wrap-repeat, ``pair_valid`` 0)."""
+    flat = random_batch(rng, b * q, cfg, vocab_size)
+    batch = {
+        "img": flat["img"][:b],
+        "qvec": flat["qvec"].reshape(b, q, -1),
+        "qlens": flat["qlens"].reshape(b, q),
+        "annot": flat["annot"].reshape(b, q, 4),
+        "pair_valid": np.ones((b, q), bool),
+    }
+    for k in ("qvec", "qlens", "annot"):
+        batch[k][1, q - 1] = batch[k][1, 0]
+    batch["pair_valid"][1, q - 1] = False
+    return batch
+
+
 def jax_variables(jcfg, vocab_size: int, seed: int = 0) -> dict:
     """A random JAX ZSGNet init, as numpy, with every bias, BatchNorm scale
     and running statistic perturbed from its default."""
@@ -64,6 +81,8 @@ def jax_variables(jcfg, vocab_size: int, seed: int = 0) -> dict:
     rng = np.random.default_rng(seed)
     out = {}
     for coll in ("params", "batch_stats"):
+        if coll not in variables:  # SSD-VGG has no BatchNorm
+            continue
         flat = traverse_util.flatten_dict(jax.tree.map(np.asarray, dict(variables[coll])))
         for path, x in flat.items():
             name = path[-1]

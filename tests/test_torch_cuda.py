@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from zsgnet_tpu_torch.models.ssd_vgg import ssd_feature_map_sizes
 from zsgnet_tpu_torch.ops import anchors as anchor_ops
 from zsgnet_tpu_torch.ops.cuda import fused_bottleneck as fb
 from zsgnet_tpu_torch.ops.cuda import fused_loss as fl
@@ -34,11 +35,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(dev, b, img=(300, 300), seed=0):
-    """Seeded K1/K2 inputs; row 0's gt has zero extent, so its IoU ties at
-    0 over every anchor."""
+def _inputs(dev, b, img=(300, 300), seed=0, sizes=None):
+    """Seeded K1/K2 inputs over the retina pyramid of ``img`` (or the
+    pyramid of ``sizes``); row 0's gt has zero extent, so its IoU ties at 0
+    over every anchor."""
     anchors = anchor_ops.create_anchors((1.0, 1.26, 1.59), (0.5, 1.0, 2.0),
-                                        anchor_ops.feature_map_sizes(img))
+                                        sizes or anchor_ops.feature_map_sizes(img))
     rng = np.random.default_rng(seed)
     a = anchors.shape[0]
     lo = rng.uniform(-1, 0.6, size=(b, 2))
@@ -79,6 +81,31 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         fl.fused_match_loss(att.double(), bbx, *anc, gt, w)
     with pytest.raises(ValueError, match="shape"):
         fl.fused_match_loss(att[:, :-1].contiguous(), bbx, *anc, gt, w)
+
+
+# The new shapes of the model variants: grouped training (24 images × 5
+# phrases = 120 rows at A = 17451) and SSD-VGG at 300² (A = 17460).
+VARIANT_SHAPES = {"grouped_b120": (120, None), "ssd_b16_a17460": (16, ssd_feature_map_sizes((300, 300)))}
+
+
+@pytest.mark.parametrize("case", list(VARIANT_SHAPES))
+def test_kernels_match_plain_versions_at_the_variant_shapes(cuda, case):
+    b, sizes = VARIANT_SHAPES[case]
+    att, bbx, anc, gt, w = _inputs(cuda, b, seed=5, sizes=sizes)
+    assert att.shape[1] == (17460 if sizes else 17451)
+    launches = (fl.fused_match_loss.launches, fl.fused_match_loss_backward.launches)
+    got, best = fl._launch_fwd(att, bbx, *anc, gt, w, 0.5, 0.4, 0.25, 2.0)
+    want = fl.fused_match_loss_reference(att, bbx, *anc, gt, w)
+    assert torch.equal(best, _best_plain(anc, gt))
+    assert float(got[2]) == float(want[2])
+    torch.testing.assert_close(got[:2], want[:2], rtol=1e-4, atol=0.0)
+    grad = torch.tensor([0.05, -0.7, 3.0], device=cuda)
+    dgot = fl.fused_match_loss_backward(att, bbx, *anc, gt, w, best, grad)
+    dwant = fl.fused_match_loss_backward_reference(att, bbx, *anc, gt, w, grad)
+    torch.cuda.synchronize()
+    for g, x in zip(dgot, dwant):
+        torch.testing.assert_close(g, x, atol=1e-6, rtol=0)
+    assert (fl.fused_match_loss.launches, fl.fused_match_loss_backward.launches) == (launches[0], launches[1] + 1)
 
 
 def _best_plain(anc, gt):

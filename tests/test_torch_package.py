@@ -123,3 +123,67 @@ def test_default_cfg_matches_jax_package():
     assert (cfg.bs, cfg.matching_threshold, cfg.resize_img) == (8, 0.6, (96, 96))
     assert zsgnet_tpu_torch.Config is type(cfg)
     assert cfg.lang_dim == 512 and cfg.num_anchors == 9
+
+
+VARIANTS = {
+    "remat_backbone": dict(remat_backbone=True),
+    "queries_per_img": dict(queries_per_img=3, bs=2),
+    "ssd_vgg": dict(mdl_to_use="ssd_vgg"),
+    "ssd_vgg_uniform_proj": dict(mdl_to_use="ssd_vgg", ssd_uniform_proj=True),
+    "use_same_atb_false": dict(use_same_atb=False),
+}
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_variants_are_no_longer_refused(variant):
+    """The model and training variants the first slices refused build and
+    step on the CPU."""
+    import numpy as np
+
+    from zsgnet_tpu_torch.config import Config
+    from zsgnet_tpu_torch.models.zsgnet import anchor_pyramid_for, get_default_net
+    from zsgnet_tpu_torch.parallel.train_step import check_supported, create_train_state, make_train_step
+
+    cfg = Config(resize_img=(64, 64), fpn_ch=16, head_ch=16, emb_dim=8, lstm_dim=8, max_qlen=6,
+                 compute_dtype="float32", **VARIANTS[variant])
+    check_supported(cfg)
+    model = get_default_net(cfg, 10, device="cpu")
+    step = make_train_step(cfg, anchor_pyramid_for(cfg), device="cpu")
+    rng = np.random.default_rng(0)
+    q = (cfg.queries_per_img,) if cfg.queries_per_img > 1 else ()
+    batch = {
+        "img": rng.integers(0, 256, (2, 64, 64, 3)).astype(np.uint8),
+        "qvec": rng.integers(1, 10, (2, *q, 6)).astype(np.int32),
+        "qlens": np.full((2, *q), 4, np.int32),
+        "annot": np.broadcast_to(np.float32([-0.5, -0.5, 0.5, 0.5]), (2, *q, 4)).copy(),
+        "pair_valid": np.ones((2, *q), bool),
+    }
+    _, ls = step(create_train_state(cfg, model), batch)
+    assert torch.isfinite(ls["total"])
+
+
+def test_unported_options_still_raise_with_their_item(tmp_path, monkeypatch):
+    """What the port does not run yet names its ROADMAP.md queue 1 item:
+    spatial partitioning 4, the canvas head, int8 and exported artifacts 2,
+    data parallel and multi-host 3."""
+    from zsgnet_tpu_torch import main as t_main
+    from zsgnet_tpu_torch.config import Config
+    from zsgnet_tpu_torch.parallel.train_step import check_supported
+    from zsgnet_tpu_torch.predict import check_servable
+    from zsgnet_tpu_torch.serve import load_server_model
+
+    cases = [
+        (lambda: check_supported(Config(mesh_spatial=2)), "queue 1 item 4"),
+        (lambda: check_servable(Config(mesh_spatial=2)), "queue 1 item 4"),
+        (lambda: check_servable(Config(head_canvas=True)), "queue 1 item 2"),
+        (lambda: check_servable(Config(quant_mode="int8")), "queue 1 item 2"),
+        (lambda: load_server_model(tmp_path / "ckpt", data_parallel=True, device="cpu"), "queue 1 item 3"),
+    ]
+    (tmp_path / "export.json").write_text("{}")
+    cases.append((lambda: load_server_model(tmp_path, device="cpu"), "queue 1 item 2"))
+    for fn, item in cases:
+        with pytest.raises(NotImplementedError, match=item):
+            fn()
+    monkeypatch.setattr("sys.argv", ["main", "run1", "--multi_host=True", "--device=cpu"])
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        t_main.main()

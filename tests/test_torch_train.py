@@ -273,9 +273,7 @@ def test_validation_uses_ema_weights_with_live_bn_stats(synth_root, tmp_path):
     assert not torch.equal(learn.state.ema["head.out.bias"], raw["head.out.bias"])
 
 
-@pytest.mark.parametrize("key,value", [
-    ("remat_backbone", True), ("queries_per_img", 2), ("mesh_spatial", 2),
-])
+@pytest.mark.parametrize("key,value", [("mesh_spatial", 2)])
 def test_unported_options_raise(synth_root, tmp_path, key, value):
     cfg = tiny_cfg(synth_root, tmp_path, **{key: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):

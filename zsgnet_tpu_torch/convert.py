@@ -25,7 +25,16 @@ for ``models.zsgnet.ZSGNet``. It is the inverse of
   ``bias_hh``;
 * the head's output conv goes from JAX's component-grouped channels
   [score·A | dy·A | dx·A | dh·A | dw·A] back to the reference's per-anchor
-  interleave (the inverse of ``regroup_head_kernel``).
+  interleave (the inverse of ``regroup_head_kernel``); JAX's per-level
+  ``head{i}`` go to ``heads.<i>``;
+* the SSD-VGG backbone's ``conv{b}_{k}``, ``conv6``, ``conv7``,
+  ``l2norm/scale``, ``extra{b}_{k}`` and ``proj{i}`` go to amdegroot's names
+  (``backbone.vgg.<i>``, ``backbone.L2Norm.weight``, ``backbone.extras.<i>``)
+  and ``backbone.proj.<i>``.
+
+``detect_layout`` and the ``.pth`` command line find the retina layout.
+A reference SSD checkpoint needs no layout: its backbone already has the
+port's names below ``backbone.``, so ``partial_load`` takes it by name.
 """
 
 from __future__ import annotations
@@ -82,10 +91,36 @@ def ungroup_head_channels(kernel: np.ndarray, bias: np.ndarray, num_anchors: int
     return np.asarray(kernel)[..., perm], np.asarray(bias)[perm]
 
 
-def state_dict_from_jax(variables: Mapping[str, Any], cfg: Config) -> dict[str, torch.Tensor]:
-    params, stats = variables["params"], variables.get("batch_stats", {})
-    sd: dict[str, torch.Tensor] = {}
+# The JAX SSD-VGG16's conv names for amdegroot's ``vgg`` Sequential indices.
+SSD_VGG_INDICES = {
+    "conv1_1": 0, "conv1_2": 2, "conv2_1": 5, "conv2_2": 7,
+    "conv3_1": 10, "conv3_2": 12, "conv3_3": 14,
+    "conv4_1": 17, "conv4_2": 19, "conv4_3": 21,
+    "conv5_1": 24, "conv5_2": 26, "conv5_3": 28, "conv6": 31, "conv7": 33,
+}
 
+
+def _conv_layer(sd: dict, prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _conv(p["kernel"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def ssd_backbone_from_jax(bp: Mapping, prefix: str = "backbone.") -> dict[str, torch.Tensor]:
+    """The JAX ``SSDVGG16`` params → ``models.ssd_vgg.SSDVGG16``'s
+    ``state_dict`` (amdegroot names), each key under ``prefix``."""
+    sd: dict[str, torch.Tensor] = {}
+    for name, i in SSD_VGG_INDICES.items():
+        _conv_layer(sd, f"{prefix}vgg.{i}", bp[name])
+    sd[f"{prefix}L2Norm.weight"] = _t(bp["l2norm"]["scale"])
+    for i in range(8):
+        _conv_layer(sd, f"{prefix}extras.{i}", bp[f"extra{i // 2 + 1}_{i % 2 + 1}"])
+    for i in range(6):
+        if f"proj{i}" in bp:
+            _conv_layer(sd, f"{prefix}proj.{i}", bp[f"proj{i}"])
+    return sd
+
+
+def _resnet_fpn(sd: dict, params: Mapping, stats: Mapping) -> None:
     bp, bs = params["backbone"], stats["backbone"]
     stem = bp["conv1"]["kernel"] if "conv1" in bp else bp["conv1_kernel"]
     sd["backbone.encoder.conv1.weight"] = _conv(stem)
@@ -103,8 +138,26 @@ def state_dict_from_jax(variables: Mapping[str, Any], cfg: Config) -> dict[str, 
                 _bn(sd, f"{t_pre}.downsample.1", jp["downsample_bn"], js["downsample_bn"])
 
     for ours, theirs in FPN_NAME_MAP.items():
-        sd[f"backbone.fpn.{theirs}.weight"] = _conv(params["fpn"][ours]["kernel"])
-        sd[f"backbone.fpn.{theirs}.bias"] = _t(params["fpn"][ours]["bias"])
+        _conv_layer(sd, f"backbone.fpn.{theirs}", params["fpn"][ours])
+
+
+def _head(sd: dict, prefix: str, head: Mapping, num_anchors: int) -> None:
+    sd[f"{prefix}.conv0.weight"] = _conv(head["conv0_kernel"])
+    sd[f"{prefix}.conv0.bias"] = _t(head["conv0_bias"])
+    for i in (1, 2, 3):
+        _conv_layer(sd, f"{prefix}.conv{i}", head[f"conv{i}"])
+    k_out, b_out = ungroup_head_channels(head["out"]["kernel"], head["out"]["bias"], num_anchors)
+    sd[f"{prefix}.out.weight"] = _conv(k_out)
+    sd[f"{prefix}.out.bias"] = _t(b_out)
+
+
+def state_dict_from_jax(variables: Mapping[str, Any], cfg: Config) -> dict[str, torch.Tensor]:
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    sd: dict[str, torch.Tensor] = {}
+    if cfg.mdl_to_use == "ssd_vgg":
+        sd.update(ssd_backbone_from_jax(params["backbone"]))
+    else:
+        _resnet_fpn(sd, params, stats)
 
     qe = params["query_enc"]
     sd["embedding.weight"] = _t(qe["embed"]["embedding"])
@@ -115,15 +168,13 @@ def state_dict_from_jax(variables: Mapping[str, Any], cfg: Config) -> dict[str, 
         sd[f"lstm.bias_ih_{sfx}"] = _t(d["bias"])
         sd[f"lstm.bias_hh_{sfx}"] = torch.zeros_like(_t(d["bias"]))
 
-    head = params["head"]
-    sd["head.conv0.weight"] = _conv(head["conv0_kernel"])
-    sd["head.conv0.bias"] = _t(head["conv0_bias"])
-    for i in (1, 2, 3):
-        sd[f"head.conv{i}.weight"] = _conv(head[f"conv{i}"]["kernel"])
-        sd[f"head.conv{i}.bias"] = _t(head[f"conv{i}"]["bias"])
-    k_out, b_out = ungroup_head_channels(head["out"]["kernel"], head["out"]["bias"], cfg.num_anchors)
-    sd["head.out.weight"] = _conv(k_out)
-    sd["head.out.bias"] = _t(b_out)
+    if "head" in params:
+        _head(sd, "head", params["head"], cfg.num_anchors)
+    else:
+        i = 0
+        while f"head{i}" in params:
+            _head(sd, f"heads.{i}", params[f"head{i}"], cfg.num_anchors)
+            i += 1
     return sd
 
 

@@ -11,11 +11,12 @@ device), queries padded to ``cfg.max_qlen``, and boxes as normalized
 epoch ``e`` shuffles with ``default_rng((seed, e))``; ``drop_last=False``
 pads the tail by wrapping and marks the real rows in ``valid``. ``get_data``
 builds the train (shuffled, drop-last), validation and test loaders and
-caches the vocab beside the CSVs.
+caches the vocab beside the CSVs. With ``cfg.queries_per_img`` Q > 1 the
+loaders serve ``GroupedDataset`` units of one image and Q phrases, the
+JAX package's units exactly.
 
-Not ported yet: host sharding (data parallel), the packed uint8 cache
-(``cfg.use_packed_cache`` reads the same data through the CSV path here)
-and grouped multi-query batches.
+Not ported yet: host sharding (data parallel) and the packed uint8 cache
+(``cfg.use_packed_cache`` reads the same data through the CSV path here).
 """
 
 from __future__ import annotations
@@ -105,12 +106,16 @@ class ImgQuDataset:
         return [str(q) for q in self.df["query"]]
 
     def __getitem__(self, i: int) -> dict[str, np.ndarray]:
+        img, orig_hw = _load_image_u8(self.image_dir / str(self.df.iloc[i]["img_id"]), self.cfg.resize_img)
+        return {"img": img, **self.meta_item(i, orig_hw)}
+
+    def meta_item(self, i: int, orig_hw: tuple[int, int]) -> dict[str, np.ndarray]:
+        """Every key but ``img``, given the image's original size (the
+        grouped loader decodes an image once for all its rows)."""
         row = self.df.iloc[i]
-        img, orig_hw = _load_image_u8(self.image_dir / str(row["img_id"]), self.cfg.resize_img)
         box_xyxy = _parse_box(row)
         ids, qlen = self.vocab.encode(str(row["query"]), self.cfg.max_qlen)
         return {
-            "img": img,
             "qvec": np.asarray(ids, dtype=np.int32),
             "qlens": np.int32(qlen),
             "annot": normalize_box_xyxy(box_xyxy, orig_hw),
@@ -119,6 +124,69 @@ class ImgQuDataset:
             "idxs": np.int32(i),
             "case": np.int32(row["case"]) if self.has_case else np.int32(-1),
         }
+
+
+class GroupedDataset:
+    """Units of one image and Q phrases, for grouped multi-query batches
+    (``cfg.queries_per_img``), built by grouping the rows on ``img_id``.
+
+    An image with n phrases gives ceil(n/Q) units; a short unit is filled
+    by wrapping over the image's own phrases, and ``pair_valid`` (Q,) marks
+    the positions before the wrap. Items: ``img`` (H, W, 3), decoded once
+    through the first row, ``qvec`` (Q, T), ``qlens``/``idxs``/``case``
+    (Q,), ``annot``/``orig_annot`` (Q, 4), ``img_size`` (2,), ``pair_valid``.
+    With ``reseed`` each epoch permutes every image's phrases first, from
+    ``default_rng((cfg.seed, epoch))`` (``BatchLoader.set_epoch``); the unit
+    count does not depend on the permutation, so an epoch's length and a
+    mid-epoch resume's batch index hold."""
+
+    def __init__(self, ds: ImgQuDataset, img_ids, queries_per_img: int, reseed: bool = False):
+        self.ds = ds
+        self.cfg = ds.cfg
+        self.q = int(queries_per_img)
+        self._reseed = bool(reseed)
+        self._epoch: int | None = None
+        groups: dict[str, list[int]] = {}
+        for i, gid in enumerate(img_ids):
+            groups.setdefault(str(gid), []).append(i)
+        self._gids = sorted(groups)
+        self._groups = groups
+        self._build_units(None)
+
+    def _build_units(self, rng: np.random.Generator | None) -> None:
+        self.units: list[list[int]] = []
+        self.n_real: list[int] = []  # positions before the wrap, per unit
+        for gid in self._gids:
+            idxs = self._groups[gid]
+            if rng is not None:
+                idxs = [idxs[k] for k in rng.permutation(len(idxs))]
+            for s in range(0, len(idxs), self.q):
+                chunk = idxs[s : s + self.q]
+                self.n_real.append(len(chunk))
+                chunk += [idxs[j % len(idxs)] for j in range(self.q - len(chunk))]
+                self.units.append(chunk)
+
+    def reseed(self, epoch: int) -> None:
+        """The units of ``epoch`` (a no-op without ``reseed`` or for the
+        epoch already built)."""
+        if not self._reseed or epoch == self._epoch:
+            return
+        self._epoch = epoch
+        self._build_units(np.random.default_rng((int(self.cfg.seed), int(epoch))))
+
+    def __len__(self) -> int:
+        return len(self.units)
+
+    def __getitem__(self, i: int) -> dict[str, np.ndarray]:
+        unit = self.units[i]
+        first = self.ds[unit[0]]
+        hw = (float(first["img_size"][0]), float(first["img_size"][1]))
+        rows = [first] + [self.ds.meta_item(j, hw) for j in unit[1:]]
+        out = {k: np.stack([r[k] for r in rows])
+               for k in ("qvec", "qlens", "annot", "orig_annot", "idxs", "case")}
+        out.update(img=first["img"], img_size=first["img_size"],
+                   pair_valid=np.arange(self.q) < self.n_real[i])
+        return out
 
 
 def collate(samples: list[dict[str, np.ndarray]]) -> dict[str, np.ndarray]:
@@ -140,7 +208,7 @@ class BatchLoader:
     """
 
     def __init__(
-        self, ds: ImgQuDataset, batch_size: int, shuffle: bool, seed: int = 0,
+        self, ds: ImgQuDataset | GroupedDataset, batch_size: int, shuffle: bool, seed: int = 0,
         nw: int = 4, drop_last: bool = True, prefetch_depth: int = 2,
     ):
         self.ds = ds
@@ -154,7 +222,10 @@ class BatchLoader:
         self.start_batch = 0
 
     def set_epoch(self, epoch: int) -> None:
+        """Shuffle for ``epoch``; a grouped dataset rebuilds its units."""
         self.epoch = epoch
+        if isinstance(self.ds, GroupedDataset):
+            self.ds.reseed(epoch)
 
     def _batch_indices(self) -> list[np.ndarray]:
         n = len(self.ds)
@@ -265,6 +336,10 @@ def get_data(cfg: Config) -> DataWrap:
     queries (``vocab_splits="train"``) or from every split present
     (``"all"``) and cached beside the CSVs under the JAX package's names,
     so either package reuses the other's cache.
+
+    With ``cfg.queries_per_img > 1`` every split is grouped by ``img_id``
+    (train reseeded per epoch under ``cfg.grouped_reseed``); the train split
+    needs the column, an evaluation split without it stays flat.
     """
     if cfg.ds_to_use not in DATASET_LAYOUT:
         raise ValueError(f"unknown ds_to_use={cfg.ds_to_use!r}; known: {sorted(DATASET_LAYOUT)}")
@@ -296,9 +371,16 @@ def get_data(cfg: Config) -> DataWrap:
         csv_path = csv_dir / f"{split}.csv"
         if not csv_path.exists():
             return None
+        ds = ImgQuDataset(csv_path, img_dir, vocab, cfg)
+        if cfg.queries_per_img > 1:
+            if "img_id" in ds.df.columns:
+                ds = GroupedDataset(ds, ds.df["img_id"], cfg.queries_per_img,
+                                    reseed=cfg.grouped_reseed and split == "train")
+            elif split == "train":
+                raise ValueError("queries_per_img > 1 needs an img_id column")
         return BatchLoader(
-            ImgQuDataset(csv_path, img_dir, vocab, cfg), cfg.bs, shuffle=shuffle,
-            seed=cfg.seed, nw=cfg.nw, drop_last=drop_last, prefetch_depth=cfg.prefetch_depth,
+            ds, cfg.bs, shuffle=shuffle, seed=cfg.seed, nw=cfg.nw, drop_last=drop_last,
+            prefetch_depth=cfg.prefetch_depth,
         )
 
     train_dl = loader("train", shuffle=True, drop_last=True)

@@ -6,13 +6,23 @@ bottleneck v1.5 (stride in the 3×3), BatchNorm with eps 1e-5 and the JAX
 package's momentum 0.9 (torch's 0.1) that normalizes with the batch's
 moments in training and with its running statistics in eval mode. Returns
 the C3/C4/C5 taps (512/1024/2048 channels, strides 8/16/32), NCHW.
+
+``ResNet50(remat=True)`` recomputes each bottleneck's activations in the
+backward pass instead of keeping them (``torch.utils.checkpoint``, the JAX
+package's ``nn.remat`` per block), in training mode only. The recomputed
+forward leaves the BatchNorm statistics alone: the momentum update is
+applied once per step, as flax's side-effect-free remat does.
 """
 
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 Tensor = torch.Tensor
 
@@ -30,11 +40,20 @@ class BatchNorm2d(nn.BatchNorm2d):
     change in place.) Every ``bn_variance`` mode of the config trains with
     this exact variance: ``shifted`` is algebraically equal to it, and
     ``fast``/``shifted16`` differ from it only by rounding in the JAX
-    package."""
+    package.
+
+    While ``frozen_stats`` is set (the recomputation under remat) the
+    training-mode forward normalizes with the batch's moments as usual and
+    updates nothing."""
+
+    frozen_stats = False
 
     def forward(self, x: Tensor) -> Tensor:
         if not self.training:
             return super().forward(x)
+        if self.frozen_stats:
+            return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(), self.weight,
+                                self.bias, True, self.momentum, self.eps)
         self.num_batches_tracked.add_(1)
         var = self.running_var.clone()
         y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias, True,
@@ -45,6 +64,19 @@ class BatchNorm2d(nn.BatchNorm2d):
             delta = (var - keep * self.running_var) * ((n - 1) / n)
             self.running_var.mul_(keep).add_(delta)
         return y
+
+
+@contextlib.contextmanager
+def frozen_bn_stats(module: nn.Module) -> Iterator[None]:
+    """The BatchNorm layers of ``module`` update no statistics inside."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.frozen_stats = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.frozen_stats = False
 
 
 class Bottleneck(nn.Module):
@@ -78,8 +110,9 @@ class Bottleneck(nn.Module):
 class ResNet50(nn.Module):
     """(B, 3, H, W) normalized image → (C3, C4, C5)."""
 
-    def __init__(self):
+    def __init__(self, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
@@ -93,10 +126,18 @@ class ResNet50(nn.Module):
                 in_ch = width * Bottleneck.expansion
             setattr(self, f"layer{stage_i + 1}", nn.Sequential(*blocks))
 
+    def _stage(self, stage: nn.Sequential, x: Tensor) -> Tensor:
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return stage(x)
+        for block in stage:
+            x = checkpoint(block, x, use_reentrant=False,
+                           context_fn=lambda b=block: (contextlib.nullcontext(), frozen_bn_stats(b)))
+        return x
+
     def forward(self, x: Tensor) -> tuple[Tensor, Tensor, Tensor]:
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
-        c2 = self.layer1(x)
-        c3 = self.layer2(c2)
-        c4 = self.layer3(c3)
-        c5 = self.layer4(c4)
+        c2 = self._stage(self.layer1, x)
+        c3 = self._stage(self.layer2, c2)
+        c4 = self._stage(self.layer3, c3)
+        c5 = self._stage(self.layer4, c4)
         return c3, c4, c5

@@ -15,8 +15,14 @@ times ``lr_scale`` times the warmup/decay schedule, exact full-batch
 gradients under ``grad_accum``, and the EMA of the parameters. It returns
 the loss dict as device tensors and never waits on the device.
 
-Not ported yet: data parallelism (``mesh``, sync-BN), spatial
-partitioning, grouped multi-query batches (``pair_valid``) and remat.
+Grouped multi-query batches (``cfg.queries_per_img`` Q > 1: ``qvec``
+(B, Q, T), ``annot`` (B, Q, 4), ``pair_valid`` (B, Q)) give B·Q pairs,
+pair-major; both steps flatten the annotations the same way and weight each
+pair's loss by ``pair_valid`` (times ``valid`` in evaluation), so a
+wrap-repeated pair counts zero times.
+
+Not ported yet: data parallelism (``mesh``, sync-BN) and spatial
+partitioning.
 """
 
 from __future__ import annotations
@@ -40,16 +46,11 @@ Tensor = torch.Tensor
 def check_supported(cfg: Config) -> None:
     """Raise for the training options this port does not run yet, naming the
     ROADMAP queue item that ports each."""
-    unported = {
-        "remat_backbone": (cfg.remat_backbone, "queue 1 item 2 (remat)"),
-        "queries_per_img": (cfg.queries_per_img > 1, "queue 1 item 2 (grouped multi-query)"),
-        "mesh_spatial": (cfg.mesh_spatial > 1, "queue 1 item 4 (spatial partitioning)"),
-    }
-    for key, (is_set, item) in unported.items():
-        if is_set:
-            raise NotImplementedError(
-                f"{key}={getattr(cfg, key)!r} is not ported yet: see ROADMAP.md {item}"
-            )
+    if cfg.mesh_spatial > 1:
+        raise NotImplementedError(
+            f"mesh_spatial={cfg.mesh_spatial!r} is not ported yet: see ROADMAP.md "
+            "queue 1 item 4 (spatial partitioning)"
+        )
 
 
 def make_compute_loss(
@@ -83,11 +84,16 @@ def make_compute_loss(
     return compute_loss
 
 
+# The batch keys that go to the device (``qlens`` stays on the host).
+DEVICE_KEYS = ("img", "qvec", "annot", "valid", "pair_valid")
+
+
 def to_device(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, Tensor]:
-    """The model and loss inputs of a host batch, as tensors on ``device``
-    (through pinned memory, without waiting, on CUDA). ``qlens`` stays on
-    the CPU, where ``pack_padded_sequence`` reads it."""
-    keys = [k for k in ("img", "qvec", "annot", "valid") if k in batch]
+    """The model and loss inputs of a host batch (``DEVICE_KEYS`` and
+    ``qlens``), as tensors on ``device`` (through pinned memory, without
+    waiting, on CUDA). ``qlens`` stays on the CPU, where
+    ``pack_padded_sequence`` reads it."""
+    keys = [k for k in DEVICE_KEYS if k in batch]
     if device.type == "cuda":
         out = {k: torch.as_tensor(batch[k]).pin_memory().to(device, non_blocking=True) for k in keys}
     else:
@@ -97,8 +103,23 @@ def to_device(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, T
 
 
 def train_batch_keys(cfg: Config) -> tuple[str, ...]:
-    """The batch keys the train step consumes."""
-    return ("img", "qvec", "qlens", "annot")
+    """The batch keys the train step consumes: grouped batches carry
+    ``pair_valid`` too."""
+    keys = ("img", "qvec", "qlens", "annot")
+    return keys + ("pair_valid",) if cfg.queries_per_img > 1 else keys
+
+
+def pairs_and_weights(b: dict[str, Tensor], valid: Tensor | None = None) -> tuple[Tensor, Tensor | None]:
+    """(annot (N, 4), per-pair loss weights (N,) or None) of a device batch:
+    a grouped batch's (B, Q, 4) annotations flattened pair-major and weighted
+    by ``pair_valid`` times ``valid`` (B,) when given."""
+    annot = b["annot"].float()
+    w = None if valid is None else valid.float()
+    if annot.dim() == 3:
+        annot = annot.reshape(-1, 4)
+        pv = b["pair_valid"].float()
+        w = (pv if w is None else w[:, None] * pv).reshape(-1)
+    return annot, w
 
 
 @dataclasses.dataclass
@@ -197,7 +218,8 @@ def make_train_step(
 
     def forward_loss(model: torch.nn.Module, b: dict[str, Tensor]) -> dict[str, Tensor]:
         out = model(b["img"], b["qvec"], b["qlens"])
-        return compute_loss(out, b["annot"].float())
+        annot, w = pairs_and_weights(b)
+        return compute_loss(out, annot, sample_weight=w)
 
     def grads_accumulated(model: torch.nn.Module, b: dict[str, Tensor]) -> dict[str, Tensor]:
         """Micro-batched backward with exact full-batch gradients. Every loss
@@ -268,7 +290,8 @@ def make_eval_step(
     ``pred_box``, ``max_pos``) plus ``loss``, the batch's validation loss
     broadcast per sample. The model runs in eval mode (running BatchNorm
     statistics). A ``valid`` mask in the batch weights the loss, so
-    wrap-padded tail rows count zero times."""
+    wrap-padded tail rows count zero times; a grouped batch's metrics are
+    per pair (B·Q rows), its loss weighted by ``valid`` times ``pair_valid``."""
     dev = resolve_device(device)
     anchors = torch.as_tensor(anchors_cthw, dtype=torch.float32).to(dev)
     compute_loss = make_compute_loss(cfg, anchors_cthw, dev)
@@ -278,8 +301,7 @@ def make_eval_step(
         model.eval()
         b = to_device(batch, dev)
         out = model(b["img"], b["qvec"], b["qlens"])
-        annot = b["annot"].float()
-        w = b["valid"].float() if "valid" in b else None
+        annot, w = pairs_and_weights(b, b.get("valid"))
         ev = eval_batch(out["att_out"], out["bbx_out"], anchors, annot, cfg.acc_iou_threshold)
         ls = compute_loss(out, annot, sample_weight=w)
         ev["loss"] = ls["total"].expand_as(ev["iou"])

@@ -1,12 +1,13 @@
 """Kernels K1 and K2 of the fused loss against their plain versions on the
 card, at the main path's shapes, and timed side by side.
 
-    python -m zsgnet_tpu_torch.tools.bench_loss [B]
+    python -m zsgnet_tpu_torch.tools.bench_loss [B] [retina|ssd_vgg]
 
-Seeded inputs at the default retina pyramid (300², A = 17451) and batch B
-(default 16, the training batch): logits N(0, 4), deltas N(0, 1), random gt
-boxes with one of zero extent (its IoU ties at 0), row weights of zeros
-and ones. K1 (``fused_match_loss``) must give its plain version's
+Seeded inputs at the default 300² pyramid of the retina model (A = 17451)
+or of SSD-VGG (A = 17460) and batch B (default 16, the training batch; 120
+is the grouped preset's 24 images × 5 phrases): logits N(0, 4), deltas
+N(0, 1), random gt boxes with one of zero extent (its IoU ties at 0), row
+weights of zeros and ones. K1 (``fused_match_loss``) must give its plain version's
 ``num_pos`` exactly and its sums to rtol 1e-4; each kernel of K2
 (``BWD_VARIANTS``: the one the wrapper launches, the same with other row
 groups, and the elementwise kernel), on K1's argmax anchors and the
@@ -86,16 +87,18 @@ def _device_ms(fn, iters: int) -> float:
     raise AssertionError(f"expected one kernel in the profile, found {[(e.key, e.count) for e in rows]}")
 
 
-def bench(b: int = 16, device: str | torch.device = "cuda", *, iters: int = 50, seed: int = 0) -> dict:
-    """Check and time K1 and K2's kernels at batch ``b`` on ``device`` (CUDA
-    only: the timings are the card's)."""
+def bench(b: int = 16, device: str | torch.device = "cuda", *, iters: int = 50, seed: int = 0,
+          mdl_to_use: str = "retina") -> dict:
+    """Check and time K1 and K2's kernels at batch ``b`` over the 300²
+    anchors of ``mdl_to_use`` on ``device`` (CUDA only: the timings are the
+    card's)."""
     from zsgnet_tpu_torch.config import get_default_cfg
     from zsgnet_tpu_torch.models.zsgnet import anchor_pyramid_for
 
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError(f"bench_loss times a CUDA device, not {dev}")
-    anchors = anchor_pyramid_for(get_default_cfg())
+    anchors = anchor_pyramid_for(get_default_cfg().replace(mdl_to_use=mdl_to_use))
     att, bbx, gt, w = (torch.from_numpy(x).to(dev) for x in random_inputs(anchors, b, np.random.default_rng(seed)))
     anc = fl.pack_anchors(anchors, dev)
     a = att.shape[1]
@@ -151,9 +154,10 @@ def bench(b: int = 16, device: str | torch.device = "cuda", *, iters: int = 50, 
 
 def main(argv: list[str]) -> int:
     b = int(argv[0]) if argv else 16
+    mdl = argv[1] if len(argv) > 1 else "retina"
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    print(json.dumps(bench(b)), flush=True)
+    print(json.dumps(bench(b, mdl_to_use=mdl)), flush=True)
     return 0
 
 

@@ -20,10 +20,15 @@ and ``vocab.json`` beside them. It keeps the JAX Learner's semantics:
 * ``cfg.glove_path`` initializes the embedding from a GloVe file
   (``data/embeddings.py``) before the optimizer and the EMA are made.
 
+* with ``cfg.queries_per_img`` Q > 1 (grouped batches of images with Q
+  phrases each) validation counts every real pair once: a pair counts when
+  its unit is real (``valid``) and it is not a wrap-repeat inside its unit
+  (``pair_valid``), so the metrics equal the flat loader's; ``qps`` counts
+  pairs.
+
 The loss is read back from the device every ``cfg.log_every`` steps, one
 interval late, so the loop never waits on the device for it. Not ported
-yet (they raise): ``remat_backbone``, ``queries_per_img > 1``,
-``mesh_spatial > 1``; ``do_dist`` runs on the one device;
+yet (it raises): ``mesh_spatial > 1``; ``do_dist`` runs on the one device;
 ``use_tensorboard`` writes nothing.
 """
 
@@ -35,6 +40,7 @@ import time
 from pathlib import Path
 from typing import Any, Iterator
 
+import numpy as np
 import torch
 
 from zsgnet_tpu_torch.config import Config
@@ -251,7 +257,8 @@ class Learner:
                 **{f"train_{k}": v for k, v in last_ls.items()},
                 **{f"val_{k}": v for k, v in metrics.items()},
                 "train_time_s": round(train_time, 2),
-                "qps": round((n_batches - epoch_skip) * cfg.bs / max(train_time, 1e-9), 2),
+                "qps": round((n_batches - epoch_skip) * cfg.bs * cfg.queries_per_img
+                             / max(train_time, 1e-9), 2),
                 "lr": self._effective_lr(),
             })
             # epoch counts completed epochs; it moves before the save so a
@@ -295,8 +302,12 @@ class Learner:
         with self._eval_weights():
             for batch in dl:
                 ev = self.eval_step(self.model, batch)
-                evaluator.update(ev, cases=batch.get("case"), ids=batch.get("idxs"),
-                                 valid=batch.get("valid"))
+                cases, ids, valid = batch.get("case"), batch.get("idxs"), batch.get("valid")
+                if "pair_valid" in batch:  # grouped: per-pair metrics, pair-major
+                    valid = (np.asarray(valid, dtype=bool)[:, None] & batch["pair_valid"]).reshape(-1)
+                    cases = None if cases is None else np.asarray(cases).reshape(-1)
+                    ids = None if ids is None else np.asarray(ids).reshape(-1)
+                evaluator.update(ev, cases=cases, ids=ids, valid=valid)
         summary = evaluator.summarize()
         if dump:
             evaluator.dump_predictions(str(self.pred_dir / f"{self.uid}_{dump}.jsonl"))
