@@ -10,7 +10,7 @@ convolutions) with seeded random weights on a synthetic dataset:
 evaluation over the validation split, a ``Grounder`` answering 1 and then
 16 requests, and training through ``main_dist`` (one epoch of Adam steps,
 validation, checkpoints), then a reload, step timings and an overfit run,
-and last layer1 of the same model through the fused inference bottleneck
+and layer1 of the same model through the fused inference bottleneck
 (K3) against the eager layer1, with K3's timings from
 ``zsgnet_tpu_torch.tools.bench_bottleneck`` (the Hopper kernel beside the
 ``mma.sync`` kernel, same inputs, same run). The loss kernels K1 and K2
@@ -23,6 +23,15 @@ the full-batch and per-pair paths (float32), open-vocabulary slots,
 ``batch_predict`` grouped against flat, and the HTTP daemon of
 ``zsgnet_tpu_torch.serve`` under 32 clients and under a burst with
 ``max_queue=4``, then their timings in bf16; no kernel launches there.
+Phase 10 takes the same checkpoint through the serving formats: the canvas
+head against the per-level head (float32 equal, bf16 in range, launches and
+wall time at buckets 1 and 16 in turns), int8 (calibrated on the first
+batch, ``torch._int_mm`` held against its plain version on the model's
+convolutions, int8 against bf16 at B = 32 and 64, the share of int8 boxes
+with IoU ≥ 0.5 against bf16), and ``torch.export`` artifacts (float32 v3
+with multi-query programs, bf16 v1) loaded in a fresh process and held
+against the live Grounders, timed beside them, and served by the daemon;
+no kernel launches there either. It runs last, after phase 7.
 Phase 9 drives the model and training variants: grouped multi-query
 training to ``configs/flickr30k_grouped.json`` (24 images × 5 phrases,
 K1/K2 at B = 120 on its outputs, float32 grouped validation against flat,
@@ -1214,6 +1223,347 @@ def check_variants(data_dir: str, tmp: Path, k1: dict, k2: dict) -> None:
     log(f"variants phase passed in {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------------ phase 10
+
+FORMATS_BATCHES = (32, 64)  # int8 against bf16
+EXPORT_BUCKETS = (1, 4, BATCH)
+
+# Loads an artifact in a process of its own, grounds the requests of a JSON
+# file, times the buckets and writes what it got.
+_ARTIFACT_CHILD = r"""
+import json, statistics, sys, time
+import numpy as np, torch
+from zsgnet_tpu_torch.export import ExportedGrounder
+from zsgnet_tpu_torch.predict import load_image
+job = json.load(open(sys.argv[1]))
+torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+out = {}
+for name, spec in job["artifacts"].items():
+    t0 = time.perf_counter()
+    g = ExportedGrounder.load(spec["dir"], device="cuda")
+    g.warmup(multiquery=True)
+    torch.cuda.synchronize()
+    res = {"load_and_warmup_s": time.perf_counter() - t0,
+           "ground": g.ground(job["paths"], job["queries"]),
+           "ground_image": g.ground_image(job["paths"][0], job["queries"][:5])}
+    if spec.get("time"):
+        arrays = [load_image(p, g.cfg.resize_img)[0] for p in job["paths"][:max(g.bucket_sizes)]]
+        for n in spec["time"]:
+            lat = []
+            for _ in range(7):
+                t0 = time.perf_counter()
+                g.ground(arrays[:n], job["queries"][:n])
+                lat.append((time.perf_counter() - t0) * 1e3)
+            res[f"ms_b{n}"] = statistics.median(lat[2:])
+    out[name] = res
+json.dump(out, open(sys.argv[2], "w"))
+"""
+
+
+def _force_per_level(g):
+    """``g`` with every bucket through the per-level head."""
+    g.canvas_for = lambda pad_to: False
+    return g
+
+
+def _arrays(g, paths: list) -> list[np.ndarray]:
+    from zsgnet_tpu_torch.predict import load_image
+
+    return [load_image(p, g.cfg.resize_img)[0] for p in paths]
+
+
+def _turns(fns: dict, runs: int = 5) -> dict:
+    """Wall ms medians of each function, timed in turns a, b, b, a."""
+    lat = {k: [] for k in fns}
+    order = list(fns) + list(fns)[::-1]
+    for k in order:
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fns[k]()
+            torch.cuda.synchronize()
+            lat[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in lat.items()}
+
+
+def _iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """IoU of matching rows of two (N, 4) tlbr arrays."""
+    tl, br = np.maximum(a[:, :2], b[:, :2]), np.minimum(a[:, 2:], b[:, 2:])
+    inter = np.prod(np.clip(br - tl, 0, None), axis=1)
+    area = lambda x: np.prod(x[:, 2:] - x[:, :2], axis=1)  # noqa: E731
+    return inter / np.maximum(area(a) + area(b) - inter, 1e-12)
+
+
+def check_canvas(model_dir: Path, paths: list, queries: list, smi: str) -> dict:
+    """Phase 10a: the canvas head against the per-level head on phase 6's
+    checkpoint: raw outputs and ``ground`` in float32 (equal: the same
+    convolutions over the same values, TF32 off), in bf16 (range-checked,
+    differences logged), then launches per ``ground`` call and wall time at
+    buckets 1 and 16, in turns, on pre-decoded images."""
+    from zsgnet_tpu_torch.predict import Grounder, encode_queries, prep_chunk
+
+    f32 = Grounder.from_checkpoint(model_dir, batch_size=BATCH, cfg_overrides={"compute_dtype": "float32"},
+                                   device="cuda")
+    if not f32.cfg.head_canvas:
+        raise AssertionError("a batch-16 Grounder does not serve through the canvas head")
+    f32_pl = _force_per_level(Grounder(f32.cfg, f32.vocab, f32.model.state_dict(), batch_size=BATCH, device="cuda"))
+    for n in (1, BATCH):
+        img, qvec, qlens, _, _ = prep_chunk(f32.cfg, f32.vocab, n, paths[:n], queries[:n])
+        with torch.inference_mode():
+            args = (torch.from_numpy(img).cuda(), torch.from_numpy(qvec).cuda(), torch.from_numpy(qlens))
+            a, b = f32.model(*args, canvas=True), f32.model(*args, canvas=False)
+        d_att = float((a["att_out"] - b["att_out"]).abs().max())
+        d_bbx = float((a["bbx_out"] - b["bbx_out"]).abs().max())
+        scale = float(b["att_out"].abs().max())
+        if d_att > 1e-4 * max(scale, 1.0) or d_bbx > 1e-4:
+            raise AssertionError(f"float32 canvas vs per-level at batch {n}: att {d_att:.3g}, bbx {d_bbx:.3g}")
+        anchors = (a["att_out"].argmax(-1)[:n].tolist(), b["att_out"].argmax(-1)[:n].tolist())
+        err = _held_results(f"float32 canvas vs per-level ground, {n} request(s)", f32.ground(paths[:n], queries[:n]),
+                            f32_pl.ground(paths[:n], queries[:n]), anchors)
+        log(f"formats: float32 canvas vs per-level head, batch {n}: att max diff {d_att:.3g} (scale {scale:.3g}), "
+            f"bbx {d_bbx:.3g}; ground max score diff {err:.2e}, {sum(x == y for x, y in zip(*anchors))}/{n} same anchor")
+    qv, ql = encode_queries(f32.cfg, f32.vocab, 8, queries[:5])
+    with torch.inference_mode():
+        img1 = torch.from_numpy(_arrays(f32, paths[:1])[0][None].copy()).cuda()
+        a = f32.model(img1, torch.from_numpy(qv).cuda(), torch.from_numpy(ql), canvas=True)
+        b = f32.model(img1, torch.from_numpy(qv).cuda(), torch.from_numpy(ql), canvas=False)
+    d_mq = float((a["att_out"] - b["att_out"]).abs().max())
+    if d_mq > 1e-4 * max(float(b["att_out"].abs().max()), 1.0):
+        raise AssertionError(f"float32 canvas vs per-level, one image against 5 queries: {d_mq}")
+    _held_results("float32 canvas vs per-level ground_image", f32.ground_image(paths[0], queries[:5]),
+                  f32_pl.ground_image(paths[0], queries[:5]))
+    del f32, f32_pl
+
+    g = Grounder.from_checkpoint(model_dir, batch_size=BATCH, device="cuda")
+    g_pl = _force_per_level(Grounder(g.cfg, g.vocab, g.model.state_dict(), batch_size=BATCH, device="cuda"))
+    got, want = g.ground(paths[:BATCH], queries[:BATCH]), g_pl.ground(paths[:BATCH], queries[:BATCH])
+    _in_range("bf16 canvas", got)
+    bf_score = max(abs(x["score"] - y["score"]) for x, y in zip(got, want))
+    bf_box = max(float(np.abs(np.subtract(x["box_norm"], y["box_norm"])).max()) for x, y in zip(got, want))
+    log(f"formats: bf16 canvas vs per-level ground of {BATCH}: max score diff {bf_score:.2e}, max box diff {bf_box:.2e}")
+
+    arrays = _arrays(g, paths[:BATCH])
+    numbers = {}
+    for n in (1, BATCH):
+        fns = {"canvas": lambda n=n: g.ground(arrays[:n], queries[:n]),
+               "per_level": lambda n=n: g_pl.ground(arrays[:n], queries[:n])}
+        for f in fns.values():
+            f()
+        wall = _turns(fns)
+        for head, fn in fns.items():
+            kern = device_kernels(fn, 3)
+            numbers[f"{head}_b{n}"] = {"wall_ms": wall[head], "device_ms": sum(t for _, t, _ in kern),
+                                       "launches": sum(c for *_, c in kern)}
+        c, p = numbers[f"canvas_b{n}"], numbers[f"per_level_b{n}"]
+        log(f"formats timings on {smi} (bf16, bucket {n}, pre-decoded images, medians of 10 in turns c,p,p,c): canvas "
+            f"{c['wall_ms']:.3f} ms wall, {c['device_ms']:.3f} ms device in {c['launches']:.0f} launches; per-level "
+            f"{p['wall_ms']:.3f} ms wall, {p['device_ms']:.3f} ms device in {p['launches']:.0f} launches")
+    return numbers
+
+
+def check_int8(model_dir: Path, paths: list, queries: list, smi: str) -> dict:
+    """Phase 10b: int8 serving on phase 6's checkpoint. A batch-64 Grounder
+    with ``quantize=True`` calibrates on its first batch (bucket 32); the
+    ``torch._int_mm`` product is held against its plain version (int32
+    equal) on the im2col of five convolutions as the model quantizes them,
+    at batch 32 and at batch 1 (the padded shapes: the stem's K = 147, the
+    head's N = 45, M = 9 at the 3×3 level); then int8 against bf16: device
+    and wall ms per batch at B = 32 and 64 in turns, and the share of
+    requests whose int8 box has IoU ≥ 0.5 with the bf16 box."""
+    from zsgnet_tpu_torch.models import quant
+    from zsgnet_tpu_torch.predict import Grounder, prep_chunk
+
+    g8 = Grounder.from_checkpoint(model_dir, batch_size=64, bucket_sizes=(32,), quantize=True, device="cuda")
+    gb = Grounder.from_checkpoint(model_dir, batch_size=64, bucket_sizes=(32,), device="cuda")
+    if not g8.quantize or g8.cfg.head_canvas or gb.latency_canvas:
+        raise AssertionError(f"batch-64 Grounders: quantize {g8.quantize}, canvas {g8.cfg.head_canvas}")
+    t0 = time.perf_counter()
+    res8 = g8.ground(paths, queries)
+    torch.cuda.synchronize()
+    n_scales = len(quant.quant_scales(g8.model))
+    log(f"formats: int8 Grounder calibrated on its first batch (bucket 32, calib@0.999) and grounded {len(paths)} "
+        f"requests in {time.perf_counter() - t0:.2f} s; {n_scales} activation scales")
+    resb = gb.ground(paths, queries)
+    _in_range("int8 ground", res8)
+    iou = _iou(np.array([r["box_norm"] for r in res8]), np.array([r["box_norm"] for r in resb]))
+    share = float((iou >= 0.5).mean())
+    log(f"formats: int8 vs bf16 on {len(paths)} requests: IoU >= 0.5 for {share:.1%}, median IoU "
+        f"{float(np.median(iou)):.4f}, max score diff {max(abs(a['score'] - b['score']) for a, b in zip(res8, resb)):.3g}")
+
+    m = g8.model
+    convs = {"stem": m.backbone["encoder"].conv1, "layer1.0.conv2": m.backbone["encoder"].layer1[0].conv2,
+             "layer4.2.conv3": m.backbone["encoder"].layer4[2].conv3, "fpn.conv6": m.backbone["fpn"].conv6,
+             "head.out": m.head.out}
+    seen: dict = {}
+    hooks = [c.register_forward_pre_hook(lambda mod, args, name=name: seen.setdefault(name, []).append(args[0]))
+             for name, c in convs.items()]
+    try:
+        for n in (32, 1):
+            img, qvec, qlens, _, _ = prep_chunk(g8.cfg, g8.vocab, n, paths[:n], queries[:n])
+            g8._infer(torch.from_numpy(img).cuda(), torch.from_numpy(qvec).cuda(), torch.from_numpy(qlens))
+    finally:
+        for h in hooks:
+            h.remove()
+    held = {}
+    for name, conv in convs.items():
+        for x in seen[name]:
+            xq = quant.quantize_sym(x.float(), quant.act_scale(conv.absmax("act", x)))
+            wq = quant.quantize_sym(conv.weight.float(), quant.weight_scale(conv.weight)[:, None, None, None])
+            cols, _, _ = quant.im2col_int8(xq, wq.shape[2:], conv.stride, conv.padding, conv.dilation)
+            b = wq.reshape(wq.shape[0], -1).t()
+            got, want = quant.int8_matmul(cols, b), quant.int8_matmul_reference(cols, b)
+            if got.dtype != torch.int32 or not torch.equal(got, want):
+                raise AssertionError(f"int8 {name} {tuple(cols.shape)}x{tuple(b.shape)}: _int_mm differs from plain "
+                                     f"by {int((got.long() - want.long()).abs().max())}")
+            key = f"{name} M{cols.shape[0]} K{cols.shape[1]} N{b.shape[1]}"
+            held[key] = {"ms": _event_ms(lambda: quant.int8_matmul(cols, b)),
+                         "plain_ms": _event_ms(lambda: quant.int8_matmul_reference(cols, b))}
+    log("formats: torch._int_mm == plain int32 sums on " + "; ".join(
+        f"{k} ({v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms)" for k, v in held.items()))
+
+    numbers = {"iou_ge_0.5_share": share, "requests": len(paths), "int_mm": held}
+    rng = np.random.default_rng(SEED)
+    for b in FORMATS_BATCHES:
+        img = torch.from_numpy(rng.integers(0, 256, (b, *g8.cfg.resize_img, 3)).astype(np.uint8)).cuda()
+        qvec = torch.from_numpy(rng.integers(1, len(g8.vocab), (b, g8.cfg.max_qlen)).astype(np.int32)).cuda()
+        qlens = torch.from_numpy(rng.integers(1, 8, (b,)).astype(np.int32))
+        fns = {"bf16": lambda: gb._infer(img, qvec, qlens), "int8": lambda: g8._infer(img, qvec, qlens)}
+        for f in fns.values():
+            f()
+        wall = _turns(fns)
+        for fmt, fn in fns.items():
+            kern = device_kernels(fn, 2)
+            numbers[f"{fmt}_b{b}"] = {"wall_ms": wall[fmt], "device_ms": sum(t for _, t, _ in kern),
+                                      "launches": sum(c for *_, c in kern)}
+            if fmt == "int8":
+                top = [(k[:50], round(t, 3)) for k, t, _ in kern[:5]]
+        i8, bf = numbers[f"int8_b{b}"], numbers[f"bf16_b{b}"]
+        log(f"formats timings on {smi}, batch {b} (device tensors, medians of 10 in turns): bf16 {bf['wall_ms']:.3f} ms "
+            f"wall, {bf['device_ms']:.3f} ms device in {bf['launches']:.0f} launches; int8 {i8['wall_ms']:.3f} ms wall, "
+            f"{i8['device_ms']:.3f} ms device in {i8['launches']:.0f} launches; int8 top kernels {top}")
+    return numbers
+
+
+def _event_ms(fn, iters: int = 20) -> float:
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check_bf16_program(path: Path) -> None:
+    """Every convolution of an exported bf16 program runs in bf16: autocast
+    survived into the graph (as ``wrap_with_autocast`` regions, whose
+    subgraphs hold the convolutions)."""
+    ep = torch.export.load(path)
+    convs = [nd for m in ep.graph_module.modules() if isinstance(m, torch.fx.GraphModule)
+             for nd in m.graph.nodes if nd.op == "call_function" and "conv" in str(nd.target)]
+    n_bf16 = sum(getattr(nd.meta.get("val"), "dtype", None) == torch.bfloat16 for nd in convs)
+    if not convs or n_bf16 != len(convs):
+        raise AssertionError(f"bf16 artifact: {n_bf16} of {len(convs)} convolutions in bf16")
+    log(f"formats: the bf16 program's graph holds {len(convs)} convolutions "
+        f"({sorted({str(nd.target) for nd in convs})}), all bf16")
+
+
+def check_export(model_dir: Path, paths: list, queries: list, tmp: Path, smi: str) -> dict:
+    """Phase 10c: ``export_serving`` for ``cuda`` on phase 6's checkpoint —
+    a float32 version 3 artifact with buckets 1, 4 and 16 and multi-query
+    programs, and a bf16 version 1 at batch 1 whose convolutions must stay
+    bf16 in the graph — then the artifacts loaded in a process of their
+    own and held against the live Grounders (float32 to 1e-4, bf16
+    range-checked), the float32 artifact's ms per request at buckets 1 and
+    16 beside the live Grounder's, and the daemon serving it. (int8 export
+    round-trips in ``tests/test_torch_export.py``.)"""
+    from zsgnet_tpu_torch.export import ExportedGrounder, export_serving
+    from zsgnet_tpu_torch.predict import Grounder
+
+    f32 = Grounder.from_checkpoint(model_dir, batch_size=BATCH, bucket_sizes=EXPORT_BUCKETS[:-1],
+                                   cfg_overrides={"compute_dtype": "float32"}, device="cuda")
+    bf = Grounder.from_checkpoint(model_dir, batch_size=1, device="cuda")
+    arts = {}
+    for name, g, kw in (("f32_v3", f32, dict(bucket_sizes=EXPORT_BUCKETS[:-1], weights_as_args=True, multiquery=True)),
+                        ("bf16_v1", bf, {})):
+        t0 = time.perf_counter()
+        path = export_serving(g, tmp / name, platforms=("cuda",), **kw)
+        n = len(list(path.glob("*/*.pt2")))
+        size = sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+        arts[name] = {"dir": str(path)}
+        log(f"formats: exported {name} ({n} programs, {size / 1e6:.1f} MB) in {time.perf_counter() - t0:.1f} s")
+    arts["f32_v3"]["time"] = [1, BATCH]
+    check_bf16_program(Path(arts["bf16_v1"]["dir"]) / "cuda" / "serving_fn.pt2")
+
+    job = tmp / "job.json"
+    job.write_text(json.dumps({"artifacts": arts, "paths": [str(p) for p in paths[:BATCH]],
+                               "queries": queries[:BATCH]}))
+    live = {"f32_v3": f32, "bf16_v1": bf}
+    want = {k: (g.ground(paths[:BATCH], queries[:BATCH]), g.ground_image(paths[0], queries[:5])) for k, g in live.items()}
+    arrays = _arrays(f32, paths[:BATCH])
+    live_ms = {n: _turns({"live": lambda n=n: f32.ground(arrays[:n], queries[:n])})["live"] for n in (1, BATCH)}
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", _ARTIFACT_CHILD, str(job), str(tmp / "got.json")], check=True, timeout=600,
+                   cwd=Path(__file__).resolve().parent)
+    got = json.loads((tmp / "got.json").read_text())
+    log(f"formats: a fresh process loaded the two artifacts and grounded in {time.perf_counter() - t0:.1f} s")
+    for name, res in got.items():
+        if name == "bf16_v1":
+            _in_range("bf16 artifact", res["ground"])
+            err = max(abs(a["score"] - b["score"]) for a, b in zip(res["ground"], want[name][0]))
+        else:
+            err = _held_results(f"{name} artifact vs live ground", res["ground"], want[name][0])
+            _held_results(f"{name} artifact vs live ground_image", res["ground_image"], want[name][1])
+        log(f"formats: {name} artifact vs live Grounder: max score diff {err:.2e}; load + warmup "
+            f"{res['load_and_warmup_s']:.1f} s")
+    numbers = {"export_ms": {f"artifact_b{n}": got["f32_v3"][f"ms_b{n}"] for n in (1, BATCH)}}
+    numbers["export_ms"].update({f"live_b{n}": live_ms[n] for n in (1, BATCH)})
+    log(f"formats timings on {smi} (float32, pre-decoded images, medians): artifact in a fresh process bucket 1 "
+        f"{numbers['export_ms']['artifact_b1']:.3f} ms, bucket {BATCH} {numbers['export_ms'][f'artifact_b{BATCH}']:.3f} ms; "
+        f"live Grounder {live_ms[1]:.3f} ms, {live_ms[BATCH]:.3f} ms")
+
+    eg = ExportedGrounder.load(arts["f32_v3"]["dir"], device="cuda")
+    srv, url = _serve(eg, window_ms=5.0)
+    try:
+        code, body, _, _ = _post(url, {"queries": queries[:5], "image_path": str(paths[0])})
+        code1, body1, _, _ = _post(url, {"query": queries[1], "image_path": str(paths[1])})
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    if (code, code1) != (200, 200):
+        raise AssertionError(f"daemon on the artifact: statuses {code}, {code1}")
+    _held_results("daemon on the artifact, queries form", body["results"], want["f32_v3"][1])
+    _held_results("daemon on the artifact, one pair", [body1], f32.ground([paths[1]], [queries[1]]))
+    log("formats: the daemon on the float32 artifact answered the queries and pair forms equal to the live Grounder")
+    return numbers
+
+
+def check_serving_formats(model_dir: Path, data_root: Path, smi: str) -> list[int]:
+    """Phase 10, serving formats, on the checkpoint phase 6 wrote: the canvas
+    head, int8 and exported artifacts (``check_canvas``, ``check_int8``,
+    ``check_export``). K1, K2 and K3 must not launch: returns their counts."""
+    from zsgnet_tpu_torch.ops.cuda.fused_bottleneck import fused_bottleneck_infer
+    from zsgnet_tpu_torch.ops.cuda.fused_loss import fused_match_loss, fused_match_loss_backward
+
+    kernels = (fused_match_loss, fused_match_loss_backward, fused_bottleneck_infer)
+    for k in kernels:
+        k.launches = 0
+    t_phase = time.perf_counter()
+    rows = pd.concat([pd.read_csv(data_root / "csv_dir" / f"{s}.csv") for s in ("val", "test")], ignore_index=True)
+    paths = [data_root / "images" / str(p) for p in rows["img_id"]]
+    queries = [str(q) for q in rows["query"]]
+    numbers = check_canvas(model_dir, paths, queries, smi)
+    numbers.update(check_int8(model_dir, paths, queries, smi))
+    with tempfile.TemporaryDirectory() as tmp:
+        numbers.update(check_export(model_dir, paths, queries, Path(tmp), smi))
+    launches = [k.launches for k in kernels]
+    if any(launches):
+        raise AssertionError(f"the serving-format paths launched (K1, K2, K3) {launches} times")
+    log(f"serving formats phase passed in {time.perf_counter() - t_phase:.1f} s; K1, K2, K3 launches in it "
+        f"{launches}; numbers {json.dumps({k: v for k, v in numbers.items() if k != 'int_mm'})}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1344,10 +1694,16 @@ def main() -> int:
         # Phase 9: grouped multi-query training, SSD-VGG, remat.
         check_variants(tmp, Path(tmp), k1, k2)
 
-    # Phase 7: K3 on layer1.
-    k3 = check_bottleneck()
-    for k, n in zip((k1, k2, k3), serving_launches):
-        k["serving_launches"] = n
+        # Phase 7: K3 on layer1.
+        k3 = check_bottleneck()
+
+        # Phase 10, last: the serving formats (canvas head, int8, exported
+        # artifacts) on phase 6's checkpoint. Its many profiler windows and
+        # exports left the profiler without device events for phase 7's
+        # bench when it ran before it.
+        formats_launches = check_serving_formats(Path(tmp) / "run" / "models" / "smoke", root, smi)
+    for k, n, f in zip((k1, k2, k3), serving_launches, formats_launches):
+        k["serving_launches"], k["serving_formats_launches"] = n, f
     log(f"every phase passed in {time.perf_counter() - t_start:.1f} s, the kernels' build included")
 
     print(smi, flush=True)

@@ -47,7 +47,7 @@ def test_import_loads_no_jax_and_no_jax_package():
 def test_serving_modules_load_no_jax():
     code = (
         "import sys\n"
-        "import zsgnet_tpu_torch.serve, zsgnet_tpu_torch.predict\n"
+        "import zsgnet_tpu_torch.serve, zsgnet_tpu_torch.predict, zsgnet_tpu_torch.export\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'zsgnet_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -60,8 +60,10 @@ SOURCES = [*sorted(PKG.rglob("*.py")), ROOT / "chip_smoke.py"]
 
 
 def test_source_scan_covers_the_serving_modules():
-    assert {PKG / "serve.py", PKG / "predict.py", PKG / "convert.py",
-            PKG / "data" / "embeddings.py"} <= set(SOURCES)
+    assert {PKG / "serve.py", PKG / "predict.py", PKG / "convert.py", PKG / "export.py",
+            PKG / "data" / "embeddings.py", PKG / "models" / "canvas.py", PKG / "models" / "quant.py",
+            *(PKG / "data" / "prep" / f"{m}.py"
+              for m in ("__init__", "flickr30k", "referit", "visual_genome", "zero_shot_splits"))} <= set(SOURCES)
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -76,6 +78,8 @@ def _entry_points():
     from zsgnet_tpu_torch.config import Config
     from zsgnet_tpu_torch.models.zsgnet import ZSGNet, anchor_pyramid_for, get_default_net
     from zsgnet_tpu_torch.data.vocab import Vocab
+    from zsgnet_tpu_torch.export import ExportedGrounder
+    from zsgnet_tpu_torch.export import main as export_main
     from zsgnet_tpu_torch.main import main_dist
     from zsgnet_tpu_torch.parallel.train_step import make_compute_loss, make_eval_step, make_train_step
     from zsgnet_tpu_torch.predict import Grounder
@@ -103,13 +107,15 @@ def _entry_points():
         "load_server_model": lambda: load_server_model("no_such_dir"),
         "serve.main": lambda: serve_main(["no_such_dir", "--port=0"]),
         "predict.main": lambda: predict_main(["no_such_dir", "no_such.png", "the red box"]),
+        "export.main": lambda: export_main(["no_such_dir", "no_such_out"]),
+        "ExportedGrounder.load": lambda: ExportedGrounder.load("no_such_dir"),
     }
 
 
 @pytest.mark.parametrize("name", ["get_default_net", "make_eval_step", "make_compute_loss", "Grounder",
                                   "make_train_step", "Learner", "main_dist", "bench_bottleneck",
                                   "bench_loss", "Grounder.from_checkpoint", "load_server_model",
-                                  "serve.main", "predict.main"])
+                                  "serve.main", "predict.main", "export.main", "ExportedGrounder.load"])
 def test_entry_points_raise_without_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -164,8 +170,8 @@ def test_variants_are_no_longer_refused(variant):
 
 def test_unported_options_still_raise_with_their_item(tmp_path, monkeypatch):
     """What the port does not run yet names its ROADMAP.md queue 1 item:
-    spatial partitioning 4, the canvas head, int8 and exported artifacts 2,
-    data parallel and multi-host 3."""
+    spatial partitioning 4, data parallel and multi-host 3. The serving
+    formats of item 2 (canvas head, int8, exported artifacts) serve."""
     from zsgnet_tpu_torch import main as t_main
     from zsgnet_tpu_torch.config import Config
     from zsgnet_tpu_torch.parallel.train_step import check_supported
@@ -175,12 +181,9 @@ def test_unported_options_still_raise_with_their_item(tmp_path, monkeypatch):
     cases = [
         (lambda: check_supported(Config(mesh_spatial=2)), "queue 1 item 4"),
         (lambda: check_servable(Config(mesh_spatial=2)), "queue 1 item 4"),
-        (lambda: check_servable(Config(head_canvas=True)), "queue 1 item 2"),
-        (lambda: check_servable(Config(quant_mode="int8")), "queue 1 item 2"),
         (lambda: load_server_model(tmp_path / "ckpt", data_parallel=True, device="cpu"), "queue 1 item 3"),
     ]
-    (tmp_path / "export.json").write_text("{}")
-    cases.append((lambda: load_server_model(tmp_path, device="cpu"), "queue 1 item 2"))
+    check_servable(Config(head_canvas=True, quant_mode="int8"))
     for fn, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             fn()

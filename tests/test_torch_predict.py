@@ -158,7 +158,8 @@ def test_from_checkpoint_serves_the_ema_weights(run_dir):
         sd = {**payload["model"], **payload["ema"]}  # EMA parameters, saved BN statistics
         by_hand = Grounder(run_dir.cfg, run_dir.vocab, sd, batch_size=2, device="cpu")
         g = Grounder.from_checkpoint(store, batch_size=2, device="cpu")
-        assert g.cfg == run_dir.cfg.replace(vocab_size=len(run_dir.vocab))
+        # batch_size 2 serves through the canvas head, as the JAX Grounder does
+        assert g.cfg == run_dir.cfg.replace(vocab_size=len(run_dir.vocab), head_canvas=True)
         assert g.vocab.word_to_id == run_dir.vocab.word_to_id
         got = g.ground([img] * 3, queries)
         assert got == by_hand.ground([img] * 3, queries)
@@ -181,10 +182,12 @@ def test_from_checkpoint_overrides_and_missing_vocab(run_dir, tmp_path):
         Grounder.from_checkpoint(bare, device="cpu")
     shutil.copy(run_dir.dir / "vocab.json", tmp_path / "v.json")
     assert Grounder.from_checkpoint(bare, vocab_path=tmp_path / "v.json", device="cpu").bs == 8
-    for cfg in (run_dir.cfg.replace(head_canvas=True), run_dir.cfg.replace(quant_mode="int8"),
-                run_dir.cfg.replace(mesh_spatial=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item [24]"):
-            Grounder(cfg, run_dir.vocab, {}, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 4"):
+        Grounder(run_dir.cfg.replace(mesh_spatial=2), run_dir.vocab, {}, device="cpu")
+    g = Grounder.from_checkpoint(run_dir.dir, cfg_overrides={"quant_mode": "int8"}, batch_size=32, device="cpu")
+    assert g.quantize and g.cfg.quant_mode == "int8" and not g.cfg.head_canvas and not g.calibrated
+    g = Grounder.from_checkpoint(run_dir.dir, cfg_overrides={"quant_mode": "int8"}, device="cpu")
+    assert not g.quantize and g.cfg.quant_mode == "off" and g.cfg.head_canvas
 
 
 def test_batch_predict_grouped_matches_flat(grounders, tmp_path):
@@ -233,5 +236,11 @@ def test_cli_grounds_one_image_and_a_csv(run_dir, tmp_path, capsys):
     assert len(rows) == 4 and rows[0]["img_id"] == "val_00008.png"
     assert_results_close(rows[:1], Grounder.from_checkpoint(run_dir.dir, device="cpu").ground(
         [run_dir.image], [rows[0]["query"]]))
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        predict.main([str(run_dir.dir), str(run_dir.image), "x", "--quantize=true", "--device=cpu"])
+    predict.main([str(run_dir.dir), str(run_dir.image), "the red box", "--quantize=true", "--device=cpu"])
+    ignored, line_q = capsys.readouterr().out.strip().splitlines()[-2:]
+    assert "quantize=True ignored" in ignored and line_q == line
+    predict.main([str(run_dir.dir), f"--csv={csv_dir / 'val.csv'}", "--batch_size=32", "--quantize=true",
+                  f"--img_dir={run_dir.image.parent}", f"--out={out}", "--device=cpu"])
+    rows_q = [json.loads(x) for x in out.read_text().splitlines()]
+    assert [r["query"] for r in rows_q] == [r["query"] for r in rows]
+    assert all(np.isfinite(r["score"]) and np.abs(r["box_norm"]).max() <= 1.0 for r in rows_q)

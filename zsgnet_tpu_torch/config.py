@@ -4,8 +4,9 @@ A copy of ``zsgnet_tpu/config.py``'s ``Config``, ``get_default_cfg`` and
 ``update_from_dict`` with the same fields and defaults, so every
 ``cfg.json`` written for the JAX package loads here unchanged. Fields that
 select TPU-only machinery (``use_pallas``, ``use_level_path``, meshes,
-canvas, int8, spatial partitioning) are kept for that compatibility; this
-package reads the model, loss and evaluation fields and ignores the rest.
+spatial partitioning) are kept for that compatibility; this package reads
+the model, loss, evaluation and serving-format (``head_canvas``,
+``quant_mode``, ``quant_head``) fields and ignores the rest.
 """
 
 from __future__ import annotations

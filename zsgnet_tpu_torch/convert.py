@@ -30,7 +30,11 @@ for ``models.zsgnet.ZSGNet``. It is the inverse of
 * the SSD-VGG backbone's ``conv{b}_{k}``, ``conv6``, ``conv7``,
   ``l2norm/scale``, ``extra{b}_{k}`` and ``proj{i}`` go to amdegroot's names
   (``backbone.vgg.<i>``, ``backbone.L2Norm.weight``, ``backbone.extras.<i>``)
-  and ``backbone.proj.<i>``.
+  and ``backbone.proj.<i>``;
+* a ``quant`` collection (a calibrated int8 model's activation scales,
+  ``act_absmax_{H}x{W}`` per conv and the heads' ``vis_absmax_{H}x{W}``)
+  goes onto the same modules' scale buffers (``models/quant.py``), so an
+  int8 ``Grounder`` serves the JAX calibration.
 
 ``detect_layout`` and the ``.pth`` command line find the retina layout.
 A reference SSD checkpoint needs no layout: its backbone already has the
@@ -151,6 +155,41 @@ def _head(sd: dict, prefix: str, head: Mapping, num_anchors: int) -> None:
     sd[f"{prefix}.out.bias"] = _t(b_out)
 
 
+def _scales(sd: dict, prefix: str, tree: Mapping) -> None:
+    for name, v in tree.items():
+        if "_absmax_" in name:
+            sd[f"{prefix}.{name}"] = _t(v)
+
+
+def quant_state_from_jax(quant: Mapping[str, Any], cfg: Config) -> dict[str, torch.Tensor]:
+    """The JAX ``quant`` collection → the port's scale buffers."""
+    sd: dict[str, torch.Tensor] = {}
+    bb = quant.get("backbone", {})
+    if cfg.mdl_to_use == "ssd_vgg":
+        for name, i in SSD_VGG_INDICES.items():
+            _scales(sd, f"backbone.vgg.{i}", bb.get(name, {}))
+        for i in range(8):
+            _scales(sd, f"backbone.extras.{i}", bb.get(f"extra{i // 2 + 1}_{i % 2 + 1}", {}))
+    else:
+        _scales(sd, "backbone.encoder.conv1", bb.get("conv1", {}))
+        for j_name, block in bb.items():
+            m = re.fullmatch(r"layer(\d)_(\d+)", j_name)
+            if m is None:
+                continue
+            for conv, tree in block.items():
+                port = "downsample.0" if conv == "downsample_conv" else conv
+                _scales(sd, f"backbone.encoder.layer{m[1]}.{m[2]}.{port}", tree)
+        for ours, theirs in FPN_NAME_MAP.items():
+            _scales(sd, f"backbone.fpn.{theirs}", quant.get("fpn", {}).get(ours, {}))
+    heads = {"head": "head"} if "head" in quant else {
+        k: f"heads.{k[4:]}" for k in quant if re.fullmatch(r"head\d+", k)}
+    for j_name, port in heads.items():
+        _scales(sd, port, quant[j_name])
+        for conv in ("conv1", "conv2", "conv3", "out"):
+            _scales(sd, f"{port}.{conv}", quant[j_name].get(conv, {}))
+    return sd
+
+
 def state_dict_from_jax(variables: Mapping[str, Any], cfg: Config) -> dict[str, torch.Tensor]:
     params, stats = variables["params"], variables.get("batch_stats", {})
     sd: dict[str, torch.Tensor] = {}
@@ -175,6 +214,7 @@ def state_dict_from_jax(variables: Mapping[str, Any], cfg: Config) -> dict[str, 
         while f"head{i}" in params:
             _head(sd, f"heads.{i}", params[f"head{i}"], cfg.num_anchors)
             i += 1
+    sd.update(quant_state_from_jax(variables.get("quant", {}), cfg))
     return sd
 
 

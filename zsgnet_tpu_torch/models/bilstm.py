@@ -6,6 +6,12 @@ the last valid token and the backward state after token 0, which is what
 the JAX masked scan returns. Gate order is torch's (i, f, g, o), the JAX
 package's too. ``nn.LSTM`` runs on cuDNN on the card.
 
+``encode_query_masked`` computes the same function as the JAX package
+does: a fixed-``T`` loop of LSTM cells, forward then backward, that keeps
+``h`` where ``t ≥ len``. Its shapes do not depend on the lengths' values,
+so ``torch.export`` traces it (``export.py``); the live path keeps cuDNN's
+packed LSTM.
+
 The embedding and the LSTM are separate modules so that ``ZSGNet`` holds
 them as ``embedding`` and ``lstm``, the reference checkpoint's names.
 """
@@ -52,3 +58,25 @@ def encode_query(embedding: nn.Embedding, lstm: nn.LSTM, qvec: Tensor, qlens: Te
     )
     _, (h_n, _) = lstm(packed)
     return torch.cat([h_n[0], h_n[1]], dim=-1)
+
+
+def encode_query_masked(embedding: nn.Embedding, lstm: nn.LSTM, qvec: Tensor, qlens: Tensor) -> Tensor:
+    """``encode_query`` as a masked scan over all ``T`` steps: (B, T), (B,) → (B, 2H)."""
+    x = embedding(qvec.long())
+    b, t = qvec.shape
+    steps = torch.arange(t, device=qvec.device)
+    valid = (steps[None, :] < qlens.to(qvec.device).long()[:, None])[..., None]  # (B, T, 1)
+    hs = []
+    for sfx, order in (("l0", range(t)), ("l0_reverse", reversed(range(t)))):
+        w_hh = getattr(lstm, f"weight_hh_{sfx}")
+        gx = x @ getattr(lstm, f"weight_ih_{sfx}").t() + getattr(lstm, f"bias_ih_{sfx}") + getattr(lstm, f"bias_hh_{sfx}")
+        h = x.new_zeros((b, lstm.hidden_size))
+        c = torch.zeros_like(h)
+        for i in order:
+            gi, gf, gg, go = (gx[:, i] + h @ w_hh.t()).chunk(4, dim=-1)
+            c_new = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gg)
+            h_new = torch.sigmoid(go) * torch.tanh(c_new)
+            c = torch.where(valid[:, i], c_new, c)
+            h = torch.where(valid[:, i], h_new, h)
+        hs.append(h)
+    return torch.cat(hs, dim=-1)

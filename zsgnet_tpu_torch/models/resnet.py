@@ -12,6 +12,10 @@ backward pass instead of keeping them (``torch.utils.checkpoint``, the JAX
 package's ``nn.remat`` per block), in training mode only. The recomputed
 forward leaves the BatchNorm statistics alone: the momentum update is
 applied once per step, as flax's side-effect-free remat does.
+
+``quant_mode`` builds every convolution through ``models.quant.conv_for``
+(the JAX package quantizes the same ones: the stem, each bottleneck's three
+and its downsample).
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from zsgnet_tpu_torch.models.quant import conv_for
 
 Tensor = torch.Tensor
 
@@ -82,20 +88,20 @@ def frozen_bn_stats(module: nn.Module) -> Iterator[None]:
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, in_ch: int, width: int, stride: int = 1):
+    def __init__(self, in_ch: int, width: int, stride: int = 1, quant_mode: str = "off"):
         super().__init__()
         out_ch = width * self.expansion
-        self.conv1 = nn.Conv2d(in_ch, width, 1, bias=False)
+        self.conv1 = conv_for(quant_mode, in_ch, width, 1, bias=False)
         self.bn1 = BatchNorm2d(width)
-        self.conv2 = nn.Conv2d(width, width, 3, stride=stride, padding=1, bias=False)
+        self.conv2 = conv_for(quant_mode, width, width, 3, stride=stride, padding=1, bias=False)
         self.bn2 = BatchNorm2d(width)
-        self.conv3 = nn.Conv2d(width, out_ch, 1, bias=False)
+        self.conv3 = conv_for(quant_mode, width, out_ch, 1, bias=False)
         self.bn3 = BatchNorm2d(out_ch)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = None
         if stride != 1 or in_ch != out_ch:
             self.downsample = nn.Sequential(
-                nn.Conv2d(in_ch, out_ch, 1, stride=stride, bias=False),
+                conv_for(quant_mode, in_ch, out_ch, 1, stride=stride, bias=False),
                 BatchNorm2d(out_ch),
             )
 
@@ -110,10 +116,10 @@ class Bottleneck(nn.Module):
 class ResNet50(nn.Module):
     """(B, 3, H, W) normalized image → (C3, C4, C5)."""
 
-    def __init__(self, remat: bool = False):
+    def __init__(self, remat: bool = False, quant_mode: str = "off"):
         super().__init__()
         self.remat = remat
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = conv_for(quant_mode, 3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
@@ -122,7 +128,7 @@ class ResNet50(nn.Module):
             blocks = []
             for block_i in range(n_blocks):
                 stride = 2 if (block_i == 0 and stage_i > 0) else 1
-                blocks.append(Bottleneck(in_ch, width, stride))
+                blocks.append(Bottleneck(in_ch, width, stride, quant_mode))
                 in_ch = width * Bottleneck.expansion
             setattr(self, f"layer{stage_i + 1}", nn.Sequential(*blocks))
 

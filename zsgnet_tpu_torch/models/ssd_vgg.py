@@ -14,16 +14,23 @@ indices of that repository's flat ``nn.Sequential`` (``vgg16_reducedfc.pth``),
 
 The extras' last two 3×3 convolutions take padding 1 when their input is
 narrower than 3 (small images), as :func:`ssd_feature_map_sizes` counts.
+
+``quant_mode`` builds the VGG and extras convolutions through
+``models.quant.conv_for``; the ``proj.<i>`` stay float, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from zsgnet_tpu_torch.models.quant import QuantConv2d, conv_for
 
 Tensor = torch.Tensor
 
@@ -86,9 +93,10 @@ class CeilMaxPool(nn.Module):
         return F.max_pool2d(x, 2, 2)
 
 
-def _vgg_layers() -> list[nn.Module]:
+def _vgg_layers(quant_mode: str = "off") -> list[nn.Module]:
     """amdegroot's ``vgg(base['300'], 3)``: conv/ReLU pairs and pools, then
     pool5, conv6 (dilation 6), conv7; conv indices 0, 2, 5, …, 31, 33."""
+    conv = partial(conv_for, quant_mode)
     layers: list[nn.Module] = []
     in_ch = 3
     for item in _VGG_PLAN:
@@ -97,12 +105,12 @@ def _vgg_layers() -> list[nn.Module]:
         elif item == "MC":
             layers.append(CeilMaxPool())
         else:
-            layers += [nn.Conv2d(in_ch, item, 3, padding=1), nn.ReLU()]
+            layers += [conv(in_ch, item, 3, padding=1), nn.ReLU()]
             in_ch = item
     layers += [
         nn.MaxPool2d(3, 1, 1),
-        nn.Conv2d(512, 1024, 3, padding=6, dilation=6), nn.ReLU(),
-        nn.Conv2d(1024, 1024, 1), nn.ReLU(),
+        conv(512, 1024, 3, padding=6, dilation=6), nn.ReLU(),
+        conv(1024, 1024, 1), nn.ReLU(),
     ]
     return layers
 
@@ -111,15 +119,16 @@ class SSDVGG16(nn.Module):
     """(B, 3, H, W) normalized image → 6 source maps, NCHW: native channels
     (``NATIVE_CHANNELS``), or ``out_ch`` each with ``uniform_proj``."""
 
-    def __init__(self, out_ch: int = 256, uniform_proj: bool = False):
+    def __init__(self, out_ch: int = 256, uniform_proj: bool = False, quant_mode: str = "off"):
         super().__init__()
-        self.vgg = nn.ModuleList(_vgg_layers())
+        conv = partial(conv_for, quant_mode)
+        self.vgg = nn.ModuleList(_vgg_layers(quant_mode))
         self.L2Norm = L2Norm(512)
         self.extras = nn.ModuleList([
-            nn.Conv2d(1024, 256, 1), nn.Conv2d(256, 512, 3, stride=2, padding=1),
-            nn.Conv2d(512, 128, 1), nn.Conv2d(128, 256, 3, stride=2, padding=1),
-            nn.Conv2d(256, 128, 1), nn.Conv2d(128, 256, 3),
-            nn.Conv2d(256, 128, 1), nn.Conv2d(128, 256, 3),
+            conv(1024, 256, 1), conv(256, 512, 3, stride=2, padding=1),
+            conv(512, 128, 1), conv(128, 256, 3, stride=2, padding=1),
+            conv(256, 128, 1), conv(128, 256, 3),
+            conv(256, 128, 1), conv(128, 256, 3),
         ])
         self.proj = (
             nn.ModuleList(nn.Conv2d(c, out_ch, 1) for c in NATIVE_CHANNELS) if uniform_proj else None
@@ -135,7 +144,9 @@ class SSDVGG16(nn.Module):
         sources.append(x)  # conv7
         for i, conv in enumerate(self.extras):
             if i in (5, 7):  # VALID 3×3, padding 1 below the kernel size
-                x = F.conv2d(x, conv.weight, conv.bias, padding=1 if x.shape[2] < 3 else 0)
+                pad = 1 if x.shape[2] < 3 else 0
+                x = conv(x, padding=pad) if isinstance(conv, QuantConv2d) else F.conv2d(
+                    x, conv.weight, conv.bias, padding=pad)
             else:
                 x = conv(x)
             x = F.relu(x)

@@ -42,7 +42,18 @@ pass (``models/resnet.py``).
 
 ``cfg.compute_dtype == "bfloat16"`` runs the backbone and heads under
 ``torch.autocast`` on CUDA; the query encoder and the outputs stay float32.
-Not ported yet: the canvas head and int8.
+
+``cfg.head_canvas`` (with a shared head) runs the head once over one
+canvas that holds every level's [visual | query | grid] input
+(``models/canvas.py``); ``forward(canvas=...)`` overrides it per call. The
+parameters are the same, so checkpoints and ``state_dict_from_jax`` serve
+either head.
+
+``cfg.quant_mode`` other than "off" builds the convolutions that the JAX
+package routes through ``conv_for`` as ``models.quant.QuantConv2d``
+(calibration or int8); with ``cfg.quant_head`` the head's conv1..out too,
+and conv0's visual channels under their own ``vis_absmax_{H}x{W}``, its
+query and grid channels staying in floating point.
 """
 
 from __future__ import annotations
@@ -52,12 +63,15 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from zsgnet_tpu_torch.config import Config
 from zsgnet_tpu_torch.data.dataset import IMAGENET_MEAN, IMAGENET_STD
-from zsgnet_tpu_torch.models.bilstm import encode_query, make_encoder
+from zsgnet_tpu_torch.models.bilstm import encode_query, encode_query_masked, make_encoder
+from zsgnet_tpu_torch.models.canvas import canvas_constants, pack_levels
 from zsgnet_tpu_torch.models.fpn import FPN
+from zsgnet_tpu_torch.models.quant import ScaleBuffers, conv_for, parse_quant_mode, quantized_conv
 from zsgnet_tpu_torch.models.resnet import ResNet50
 from zsgnet_tpu_torch.models.ssd_vgg import SSDVGG16, ssd_feature_map_sizes
 from zsgnet_tpu_torch.ops import anchors as anchor_ops
@@ -68,21 +82,49 @@ Tensor = torch.Tensor
 FOCAL_PRIOR_BIAS = -math.log((1.0 - 0.01) / 0.01)
 
 
-class PredictionHead(nn.Module):
-    """Fusion head: 4×(conv3×3 + ReLU), then conv3×3 → A·5 channels,
-    per-anchor interleaved."""
+class PredictionHead(ScaleBuffers, nn.Module):
+    """Fusion head over [visual (``vis_ch``) | query | grid]: 4×(conv3×3 +
+    ReLU), then conv3×3 → A·5 channels, per-anchor interleaved.
 
-    def __init__(self, in_ch: int, mid_ch: int, num_anchors: int):
+    ``occupancy`` (canvas mode) multiplies every ReLU's output, re-zeroing
+    the canvas's gap cells. In int8 mode conv0 is computed as
+    ``int8_conv(vis, W[:, :Cv]) + conv([query, grid], W[:, Cv:]) + bias``
+    (:meth:`conv0_split`), with the visual channels' scale
+    ``vis_absmax_{H}x{W}``; conv1..out are ``QuantConv2d``."""
+
+    def __init__(self, vis_ch: int, lang_ch: int, mid_ch: int, num_anchors: int, quant_mode: str = "off"):
         super().__init__()
-        self.conv0 = nn.Conv2d(in_ch, mid_ch, 3, padding=1)
-        self.conv1 = nn.Conv2d(mid_ch, mid_ch, 3, padding=1)
-        self.conv2 = nn.Conv2d(mid_ch, mid_ch, 3, padding=1)
-        self.conv3 = nn.Conv2d(mid_ch, mid_ch, 3, padding=1)
-        self.out = nn.Conv2d(mid_ch, num_anchors * 5, 3, padding=1)
+        self.vis_ch = vis_ch
+        self.mode, self.percentile = parse_quant_mode(quant_mode)
+        self.conv0 = nn.Conv2d(vis_ch + lang_ch + 2, mid_ch, 3, padding=1)
+        self.conv1 = conv_for(quant_mode, mid_ch, mid_ch, 3, padding=1)
+        self.conv2 = conv_for(quant_mode, mid_ch, mid_ch, 3, padding=1)
+        self.conv3 = conv_for(quant_mode, mid_ch, mid_ch, 3, padding=1)
+        self.out = conv_for(quant_mode, mid_ch, num_anchors * 5, 3, padding=1)
 
-    def forward(self, x: Tensor) -> Tensor:
-        for conv in (self.conv0, self.conv1, self.conv2, self.conv3):
+    def conv0_split(self, x: Tensor, vis_conv) -> Tensor:
+        """conv0 as ``vis_conv(visual, W[:, :Cv])`` plus the float conv of
+        the query and grid channels plus the bias."""
+        cv, w = self.vis_ch, self.conv0.weight
+        rest = F.conv2d(x[:, cv:], w[:, cv:], None, padding=1)
+        return vis_conv(x[:, :cv], w[:, :cv]) + rest + self.conv0.bias[:, None, None]
+
+    def _conv0(self, x: Tensor) -> Tensor:
+        if self.mode == "int8":
+            return self.conv0_split(x, lambda v, w: quantized_conv(v, self.absmax("vis", v), w, None, 1, 1))
+        if self.mode == "calib":
+            with torch.no_grad():
+                self.record("vis", x[:, : self.vis_ch], self.percentile)
+        return self.conv0(x)
+
+    def forward(self, x: Tensor, occupancy: Tensor | None = None) -> Tensor:
+        x = torch.relu(self._conv0(x))
+        for conv in (self.conv1, self.conv2, self.conv3):
+            if occupancy is not None:
+                x = x * occupancy
             x = torch.relu(conv(x))
+        if occupancy is not None:
+            x = x * occupancy
         return self.out(x)
 
 
@@ -90,20 +132,23 @@ class ZSGNet(nn.Module):
     def __init__(self, cfg: Config, vocab_size: int):
         super().__init__()
         self.cfg = cfg
+        qm = cfg.quant_mode
         if cfg.mdl_to_use == "retina":
             self.backbone = nn.ModuleDict({
-                "encoder": ResNet50(remat=cfg.remat_backbone), "fpn": FPN(cfg.fpn_ch),
+                "encoder": ResNet50(remat=cfg.remat_backbone, quant_mode=qm),
+                "fpn": FPN(cfg.fpn_ch, quant_mode=qm),
             })
             channels = (cfg.fpn_ch,) * 5
         elif cfg.mdl_to_use == "ssd_vgg":
-            self.backbone = SSDVGG16(cfg.fpn_ch, uniform_proj=cfg.ssd_uniform_proj)
+            self.backbone = SSDVGG16(cfg.fpn_ch, uniform_proj=cfg.ssd_uniform_proj, quant_mode=qm)
             channels = self.backbone.channels
         else:
             raise ValueError(f"unknown mdl_to_use: {cfg.mdl_to_use}")
         self.embedding, self.lstm = make_encoder(vocab_size, cfg.emb_dim, cfg.lstm_dim)
+        head_mode = qm if cfg.quant_head else "off"
 
         def head(vis_ch: int) -> PredictionHead:
-            return PredictionHead(vis_ch + cfg.lang_dim + 2, cfg.head_ch, cfg.num_anchors)
+            return PredictionHead(vis_ch, cfg.lang_dim, cfg.head_ch, cfg.num_anchors, head_mode)
 
         if cfg.use_same_atb and len(set(channels)) == 1:
             self.head = head(channels[0])
@@ -114,6 +159,7 @@ class ZSGNet(nn.Module):
         self.register_buffer("img_mean", torch.tensor(IMAGENET_MEAN).view(1, 3, 1, 1), persistent=False)
         self.register_buffer("img_std", torch.tensor(IMAGENET_STD).view(1, 3, 1, 1), persistent=False)
         self._grids: dict[tuple, Tensor] = {}
+        self._canvases: dict[tuple, tuple] = {}
 
     def _grid(self, h: int, w: int, device: torch.device) -> Tensor:
         key = (h, w, str(device))
@@ -122,16 +168,64 @@ class ZSGNet(nn.Module):
             self._grids[key] = torch.from_numpy(np.ascontiguousarray(grid))[None].to(device)
         return self._grids[key]
 
+    def _canvas(self, sizes: tuple, device: torch.device) -> tuple:
+        """(layout, grid (1, 2, H, W), occupancy (1, 1, H, W)) of the canvas
+        for these level sizes."""
+        key = (sizes, str(device))
+        if key not in self._canvases:
+            layout = pack_levels(sizes)
+            consts = canvas_constants(layout)
+            chw = [torch.from_numpy(np.ascontiguousarray(consts[k].transpose(2, 0, 1)))[None].to(device)
+                   for k in ("grid", "occupancy")]
+            self._canvases[key] = (layout, *chw)
+        return self._canvases[key]
+
     def _features(self, x: Tensor) -> tuple[Tensor, ...]:
         if self.cfg.mdl_to_use == "retina":
             return self.backbone["fpn"](*self.backbone["encoder"](x))
         return self.backbone(x)
 
-    def forward(self, img: Tensor, qvec: Tensor, qlens: Tensor) -> dict:
+    @staticmethod
+    def _to_pairs(f: Tensor, b: int) -> Tensor:
+        """Each image's rows to its queries' rows, pair-major."""
+        if f.shape[0] == b:
+            return f
+        return f.expand(b, -1, -1, -1) if f.shape[0] == 1 else f.repeat_interleave(b // f.shape[0], dim=0)
+
+    def _level_head(self, f: Tensor, q: Tensor, head: PredictionHead) -> Tensor:
+        b = q.shape[0]
+        f = self._to_pairs(f, b)
+        _, _, h, w = f.shape
+        lang = q[:, :, None, None].to(f.dtype).expand(b, q.shape[1], h, w)
+        grid = self._grid(h, w, f.device).to(f.dtype).expand(b, 2, h, w)
+        return head(torch.cat([f, lang, grid], dim=1))
+
+    def _canvas_head(self, feats: tuple, q: Tensor) -> list[Tensor]:
+        """The shared head once over the canvas; each level's output sliced
+        back out."""
+        f0 = feats[0]
+        layout, grid, occ = self._canvas(tuple(tuple(f.shape[-2:]) for f in feats), f0.device)
+        vis = f0.new_zeros((f0.shape[0], f0.shape[1], layout.height, layout.width))
+        for f, (r, c), (h, w) in zip(feats, layout.offsets, layout.sizes):
+            vis[:, :, r : r + h, c : c + w] = f
+        b = q.shape[0]
+        vis = self._to_pairs(vis, b)
+        occ = occ.to(vis.dtype)
+        lang = q[:, :, None, None].to(vis.dtype) * occ
+        x = torch.cat([vis, lang, grid.to(vis.dtype).expand(b, -1, -1, -1)], dim=1)
+        out = self.head(x, occupancy=occ)
+        return [out[:, :, r : r + h, c : c + w] for (r, c), (h, w) in zip(layout.offsets, layout.sizes)]
+
+    def forward(self, img: Tensor, qvec: Tensor, qlens: Tensor, canvas: bool | None = None,
+                packed_lstm: bool = True) -> dict:
         """img (B, H, W, 3) uint8 (normalized here, in float32) or float
         already normalized; qvec (N, T) int and qlens (N,) int with N a
         multiple of B (B = 1 against N queries, or B = N), or grouped:
-        qvec (B, Q, T) and qlens (B, Q), N = B·Q pairs, pair-major."""
+        qvec (B, Q, T) and qlens (B, Q), N = B·Q pairs, pair-major.
+        ``canvas`` picks the canvas head for this call (default
+        ``cfg.head_canvas``; per-level heads have none). ``packed_lstm=False``
+        encodes the queries with the masked scan, which ``torch.export``
+        traces."""
         if qvec.dim() == 3:
             qvec = qvec.reshape(-1, qvec.shape[-1])
             qlens = qlens.reshape(-1)
@@ -143,22 +237,21 @@ class ZSGNet(nn.Module):
         autocast = (
             torch.autocast("cuda", dtype=torch.bfloat16) if bf16 else contextlib.nullcontext()
         )
-        q = encode_query(self.embedding, self.lstm, qvec, qlens)  # float32
+        q = (encode_query if packed_lstm else encode_query_masked)(self.embedding, self.lstm, qvec, qlens)
         b, a = q.shape[0], self.cfg.num_anchors
         if b % x.shape[0]:
             raise ValueError(f"{b} queries do not divide among {x.shape[0]} images")
-        reps = b // x.shape[0]
+        use_canvas = (self.cfg.head_canvas if canvas is None else canvas) and hasattr(self, "head")
         atts, bbxs, feat_sizes = [], [], []
         with autocast:
             feats = self._features(x)
-            for f, head in zip(feats, self.level_heads):
-                if reps > 1:  # each image to its queries' rows, pair-major
-                    f = f.expand(b, -1, -1, -1) if f.shape[0] == 1 else f.repeat_interleave(reps, dim=0)
-                _, _, h, w = f.shape
-                lang = q[:, :, None, None].to(f.dtype).expand(b, q.shape[1], h, w)
-                grid = self._grid(h, w, f.device).to(f.dtype).expand(b, 2, h, w)
-                out = head(torch.cat([f, lang, grid], dim=1)).float()
-                r = out.permute(0, 2, 3, 1).reshape(b, h * w * a, 5)
+            if use_canvas:
+                outs = self._canvas_head(feats, q)
+            else:
+                outs = [self._level_head(f, q, head) for f, head in zip(feats, self.level_heads)]
+            for out in outs:
+                h, w = out.shape[-2:]
+                r = out.float().permute(0, 2, 3, 1).reshape(b, h * w * a, 5)
                 atts.append(r[..., 0])
                 bbxs.append(r[..., 1:5])
                 feat_sizes.append((h, w))

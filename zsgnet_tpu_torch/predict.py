@@ -19,11 +19,11 @@ box columns are ignored) to JSONL predictions:
         --img_dir=images [--out=preds.jsonl] [--batch_size=32] [--grouped=false]
 
 ``--device`` (default ``cuda``) is where the model runs; ``--vocab=``,
-``--oov_slots=N`` and ``--glove=<file>`` are as for ``Grounder``; every other
-``--key=val`` overrides the checkpoint's ``cfg.json``.
+``--oov_slots=N``, ``--glove=<file>`` and ``--quantize=true`` are as for
+``Grounder``; every other ``--key=val`` overrides the checkpoint's
+``cfg.json``.
 
-Not ported yet (they raise, naming their ROADMAP item): the canvas head,
-int8 (``--quantize``, ``quant_mode="int8"``) and meshes.
+Not ported yet (it raises, naming its ROADMAP item): ``mesh_spatial``.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ import torch
 from zsgnet_tpu_torch.config import Config, get_default_cfg
 from zsgnet_tpu_torch.data.dataset import _load_image_u8
 from zsgnet_tpu_torch.data.vocab import Vocab, tokenize
+from zsgnet_tpu_torch.models.quant import quant_scales, set_quant_mode
 from zsgnet_tpu_torch.models.zsgnet import ZSGNet, anchor_pyramid_for
 from zsgnet_tpu_torch.train.checkpoint import CheckpointManager, find_sidecar, load_sidecar_cfg
 from zsgnet_tpu_torch.train.evaluator import decode_best_box
@@ -50,7 +51,9 @@ Tensor = torch.Tensor
 # A partial chunk pads to the smallest of these below the batch size (or
 # to the batch size itself).
 BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
-INT8_ITEM = "queue 1 item 2 (serving formats: int8)"
+# Chunks of at most this many rows go through the canvas head (the JAX
+# package's measured crossover, zsgnet_tpu/predict.py).
+LATENCY_BATCH_MAX = 16
 
 
 def unported(what: str, item: str) -> NotImplementedError:
@@ -59,12 +62,17 @@ def unported(what: str, item: str) -> NotImplementedError:
 
 def check_servable(cfg: Config) -> None:
     """Raise for the serving options this port does not run yet."""
-    if cfg.quant_mode == "int8":
-        raise unported("quant_mode='int8'", INT8_ITEM)
-    if cfg.head_canvas:
-        raise unported("head_canvas=True", "queue 1 item 2 (serving formats: canvas)")
     if cfg.mesh_spatial > 1:
         raise unported(f"mesh_spatial={cfg.mesh_spatial}", "queue 1 item 4 (spatial partitioning)")
+
+
+def to_device(a: np.ndarray, device: torch.device) -> Tensor:
+    """A host array on ``device``, through pinned memory without blocking
+    on CUDA."""
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
 
 
 def load_image(im: str | Path | np.ndarray, resize_hw: tuple[int, int]) -> tuple[np.ndarray, tuple]:
@@ -127,10 +135,10 @@ class OpenVocabMixin:
     the word's GloVe row when ``glove_path`` has it, else a row drawn from
     a generator seeded with the word's CRC-32. Distinct unseen words so stay
     distinct instead of collapsing onto ``<unk>``; the rows are the JAX
-    package's bit for bit. A row is written into ``model.embedding.weight``
-    in place, on the model's device.
+    package's bit for bit. A row is written into ``embedding_table`` in
+    place, on its device.
 
-    The user class sets ``cfg``, ``vocab``, ``model``, ``oov_slots``,
+    The user class sets ``cfg``, ``vocab``, ``embedding_table``, ``oov_slots``,
     ``glove_path``, ``_glove_offsets``, ``_oov_warned``, ``_emb_scale`` and
     ``_vocab_rows``."""
 
@@ -168,7 +176,7 @@ class OpenVocabMixin:
         without ``oov_slots``)."""
         if not self.oov_slots:
             return
-        weight = self.model.embedding.weight
+        weight = self.embedding_table
         for q in queries:
             # Tokens past max_qlen never reach the model: they take no slot.
             for w in tokenize(q)[: self.cfg.max_qlen]:
@@ -192,10 +200,18 @@ class OpenVocabMixin:
 class Grounder(OpenVocabMixin):
     """Load-once, call-many grounding predictor.
 
-    The JAX ``Grounder`` serves batches of up to 16 through its canvas head,
-    an exact reparameterization of the shared per-level head with the same
-    parameters; the port's concat-then-conv head computes the same function
-    at every batch size, so it has one head.
+    The head and the number format follow the JAX ``Grounder``:
+
+    * ``batch_size`` ≤ ``LATENCY_BATCH_MAX`` (16) with a shared head serves
+      through the canvas head (``cfg.head_canvas``), and ignores
+      ``quantize=True``;
+    * above it, ``quantize=True`` (or ``cfg.quant_mode == "int8"``) serves
+      int8, calibrated at ``calib@{quant_percentile}`` on the first batch
+      that ``ground``/``ground_image`` sees, or by :meth:`calibrate`;
+    * a float ``Grounder`` above it still serves its buckets of at most 16
+      rows through the canvas head, the larger ones per level.
+
+    Both heads are one set of parameters, so one model serves every bucket.
 
     ``ground`` keeps two chunks in flight: inputs go to the device from
     pinned memory without blocking, outputs stay there, and a chunk is read
@@ -206,10 +222,21 @@ class Grounder(OpenVocabMixin):
         self, cfg: Config, vocab: Vocab, state_dict: dict[str, Tensor],
         batch_size: int = 8, bucket_sizes: tuple[int, ...] | None = None,
         oov_slots: int = 0, glove_path: str | Path | None = None,
-        device: str | torch.device = "cuda",
+        device: str | torch.device = "cuda", quantize: bool = False, quant_percentile: float = 0.999,
     ):
         self.device = resolve_device(device)
         check_servable(cfg)
+        if batch_size <= LATENCY_BATCH_MAX and cfg.use_same_atb:
+            cfg = cfg.replace(head_canvas=True)
+        self.quantize = quantize or cfg.quant_mode == "int8"
+        if self.quantize and cfg.head_canvas:
+            if quantize:
+                print("Grounder: quantize=True ignored at latency batch sizes "
+                      f"(batch_size={batch_size} <= {LATENCY_BATCH_MAX} uses the canvas head; "
+                      f"pass batch_size>{LATENCY_BATCH_MAX} for int8 throughput serving)")
+            self.quantize = False
+        cfg = cfg.replace(quant_mode="int8" if self.quantize else "off")
+        self.quant_percentile = float(quant_percentile)
         self.cfg = cfg
         self.vocab = vocab
         self.bs = int(batch_size)
@@ -217,12 +244,16 @@ class Grounder(OpenVocabMixin):
             bucket_sizes = tuple(b for b in BUCKETS if b < self.bs)
         # bucket_sizes=(batch_size,) pads every chunk to the full batch.
         self.bucket_sizes = tuple(sorted({*bucket_sizes, self.bs}))
+        # A float Grounder above the latency sizes serves its small buckets
+        # through the canvas head (the JAX Grounder's latency function).
+        self.latency_canvas = (cfg.use_same_atb and not cfg.head_canvas and not self.quantize
+                               and min(self.bucket_sizes) <= LATENCY_BATCH_MAX)
         self.oov_slots = int(oov_slots)
         self.glove_path = str(glove_path) if glove_path else None
         self._oov_warned = False
         self._glove_offsets: dict[str, int] | None = None
         self._vocab_rows = len(vocab) + self.oov_slots
-        state_dict = dict(state_dict)
+        state_dict = {k: v for k, v in state_dict.items() if self.quantize or "_absmax_" not in k}
         if self.oov_slots:
             emb = state_dict["embedding.weight"].detach().cpu().float().numpy()
             if emb.shape[0] != len(vocab):
@@ -239,12 +270,23 @@ class Grounder(OpenVocabMixin):
         self.model.to(self.device).eval()
         self.anchors = torch.as_tensor(anchor_pyramid_for(cfg)).to(self.device)
 
+    @property
+    def embedding_table(self) -> Tensor:
+        return self.model.embedding.weight
+
+    @property
+    def calibrated(self) -> bool:
+        """An int8 Grounder has activation scales (from :meth:`calibrate`, its
+        first batch, or the state_dict it was given)."""
+        return bool(quant_scales(self.model))
+
     @classmethod
     def from_checkpoint(
         cls, ckpt_dir: str | Path, vocab_path: str | Path | None = None,
         cfg: Config | None = None, batch_size: int = 8, cfg_overrides: dict | None = None,
         oov_slots: int = 0, glove_path: str | Path | None = None,
-        device: str | torch.device = "cuda",
+        device: str | torch.device = "cuda", quantize: bool = False,
+        bucket_sizes: tuple[int, ...] | None = None,
     ) -> "Grounder":
         """Serve the latest step of a checkpoint directory that the port's
         Learner (or ``convert``) wrote: the run's model directory or its
@@ -268,13 +310,19 @@ class Grounder(OpenVocabMixin):
         vocab = Vocab.load(vocab_path)
         payload = CheckpointManager(ckpt_dir).restore()
         state_dict = {**payload["model"], **payload.get("ema", {})}
-        return cls(cfg, vocab, state_dict, batch_size, oov_slots=oov_slots,
-                   glove_path=glove_path, device=device)
+        return cls(cfg, vocab, state_dict, batch_size, bucket_sizes, oov_slots=oov_slots,
+                   glove_path=glove_path, device=device, quantize=quantize)
 
     def warmup(self, multiquery: bool = False) -> None:
         """Run every shape bucket once now (and, with ``multiquery``, every
         ``ground_image`` bucket), so that no request pays a first call's
-        set-up. Queries are ``<unk>``, which takes no OOV slot."""
+        set-up. Queries are ``<unk>``, which takes no OOV slot. An int8
+        Grounder that is not calibrated yet skips: zeros would calibrate
+        garbage scales."""
+        if self.quantize and not self.calibrated:
+            print("Grounder.warmup: skipped — int8 serving calibrates on the first real batch; "
+                  "warm up after .calibrate()/.ground()")
+            return
         zero = np.zeros((*self.cfg.resize_img, 3), np.uint8)
         for b in self.bucket_sizes:
             self.ground([zero] * b, ["<unk>"] * b)
@@ -282,16 +330,29 @@ class Grounder(OpenVocabMixin):
             for b in self.bucket_sizes:
                 self.ground_image(zero, ["<unk>"] * b)
 
+    @torch.inference_mode()
+    def calibrate(self, img: np.ndarray, qvec: np.ndarray, qlens: np.ndarray) -> None:
+        """Record every quantized conv's activation scales from one
+        representative batch (running maxima), then serve int8."""
+        set_quant_mode(self.model, f"calib@{self.quant_percentile}")
+        try:
+            self.model(self._to_device(img), self._to_device(qvec), torch.from_numpy(qlens))
+        finally:
+            set_quant_mode(self.model, "int8")
+
     def _to_device(self, a: np.ndarray) -> Tensor:
-        t = torch.from_numpy(a)
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
+        return to_device(a, self.device)
+
+    def canvas_for(self, pad_to: int) -> bool | None:
+        """The head for a chunk padded to ``pad_to`` rows: the canvas for the
+        small buckets of a float Grounder above the latency sizes, else
+        the cfg's."""
+        return True if self.latency_canvas and pad_to <= LATENCY_BATCH_MAX else None
 
     @torch.inference_mode()
     def _infer(self, img: Tensor, qvec: Tensor, qlens: Tensor) -> tuple[Tensor, Tensor]:
         """→ (boxes (B, 4), scores (B,)), left on the device."""
-        out = self.model(img, qvec, qlens)
+        out = self.model(img, qvec, qlens, canvas=self.canvas_for(qvec.shape[0]))
         att = out["att_out"]
         box = decode_best_box(att, out["bbx_out"], self.anchors)
         return box, torch.sigmoid(att.max(dim=-1).values)
@@ -314,13 +375,15 @@ class Grounder(OpenVocabMixin):
                 self.cfg, self.vocab, self._pad_to(len(chunk)), chunk,
                 queries[start : start + self.bs],
             )
+            if self.quantize and not self.calibrated:
+                self.calibrate(imgs, qvec, qlens)
             boxes, scores = self._infer(self._to_device(imgs), self._to_device(qvec),
                                         torch.from_numpy(qlens))
             in_flight.append((boxes, scores, sizes, k))
             if len(in_flight) > 2:
-                out.extend(_read(*in_flight.popleft()))
+                out.extend(read_results(*in_flight.popleft()))
         while in_flight:
-            out.extend(_read(*in_flight.popleft()))
+            out.extend(read_results(*in_flight.popleft()))
         return out
 
     def ground_image(self, image: str | Path | np.ndarray, queries: list[str]) -> list[dict]:
@@ -338,13 +401,16 @@ class Grounder(OpenVocabMixin):
             chunk = queries[start : start + self.bs]
             pad_to = self._pad_to(len(chunk))
             qvec, qlens = encode_queries(self.cfg, self.vocab, pad_to, chunk)
+            if self.quantize and not self.calibrated:
+                self.calibrate(img[None].copy(), qvec, qlens)
             boxes, scores = self._infer(img_dev, self._to_device(qvec), torch.from_numpy(qlens))
             sizes = np.tile(np.asarray(orig_hw, np.float32), (pad_to, 1))
-            out.extend(_read(boxes, scores, sizes, len(chunk)))
+            out.extend(read_results(boxes, scores, sizes, len(chunk)))
         return out
 
 
-def _read(boxes: Tensor, scores: Tensor, sizes: np.ndarray, k: int) -> list[dict]:
+def read_results(boxes: Tensor, scores: Tensor, sizes: np.ndarray, k: int) -> list[dict]:
+    """One chunk's outputs, read back from the device → per-request dicts."""
     return chunk_results(boxes.cpu().numpy(), scores.cpu().numpy(), sizes, k)
 
 
@@ -404,9 +470,8 @@ def main(argv: list[str] | None = None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     args = [a for a in argv if not a.startswith("--")]
     overrides = dict(a[2:].split("=", 1) for a in argv if a.startswith("--") and "=" in a)
-    if is_true(overrides.pop("quantize", "false")):
-        raise unported("quantize=True", INT8_ITEM)
     kw = dict(
+        quantize=is_true(overrides.pop("quantize", "false")),
         vocab_path=overrides.pop("vocab", None),
         oov_slots=int(overrides.pop("oov_slots", "0")),
         glove_path=overrides.pop("glove", None),

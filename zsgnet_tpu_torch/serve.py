@@ -1,5 +1,5 @@
-"""Serving daemon — torch port of ``zsgnet_tpu/serve.py``: a checkpoint
-behind stdlib HTTP (``http.server``).
+"""Serving daemon — torch port of ``zsgnet_tpu/serve.py``: a checkpoint or
+an exported artifact behind stdlib HTTP (``http.server``).
 
 **Micro-batching.** Concurrent requests coalesce in a queue; one worker
 thread drains up to ``batch_size`` of them (waiting at most ``window_ms``
@@ -27,17 +27,19 @@ bytes instead of N. Admission is bounded (``max_queue`` pairs, in-flight
 included): beyond it a request gets 503 with ``Retry-After: 1``.
 
 CLI:
-    python -m zsgnet_tpu_torch.serve <ckpt_dir> [--port=8500]
+    python -m zsgnet_tpu_torch.serve <ckpt_or_artifact_dir> [--port=8500]
         [--batch_size=8] [--window_ms=5] [--max_queue=N] [--host=127.0.0.1]
         [--warmup=false] [--oov_slots=N] [--glove=<file>] [--device=cuda]
-        [--key=val ...]
+        [--quantize=true] [--key=val ...]
 
+A directory holding ``export.json`` is served through
+``export.ExportedGrounder`` (its batch size and buckets are the
+artifact's), any other as a checkpoint through ``Grounder.from_checkpoint``.
 ``--warmup`` (default true) runs every pair and multi-query bucket before
 the daemon takes requests. SIGTERM stops accepting and answers the
 requests already accepted before the process exits.
 
-Not ported yet (they raise, naming their ROADMAP item): exported artifacts
-(a directory with ``export.json``), ``--quantize``, ``--data_parallel``
+Not ported yet (they raise, naming their ROADMAP item): ``--data_parallel``
 and ``--mesh_spatial``.
 """
 
@@ -58,7 +60,8 @@ from pathlib import Path
 import torch
 
 from zsgnet_tpu_torch.data.dataset import load_image_bytes_u8
-from zsgnet_tpu_torch.predict import INT8_ITEM, Grounder, is_true, unported
+from zsgnet_tpu_torch.export import ExportedGrounder
+from zsgnet_tpu_torch.predict import Grounder, is_true, unported
 from zsgnet_tpu_torch.utils.backend import resolve_device
 
 
@@ -263,17 +266,29 @@ def _rescale_result(res: dict, orig_hw) -> dict:
 def load_server_model(
     model_dir: str | Path, batch_size: int = 8, cfg_overrides: dict | None = None,
     data_parallel: bool = False, oov_slots: int = 0, glove_path: str | None = None,
-    device: str | torch.device = "cuda",
-) -> Grounder:
-    """A checkpoint directory → ``Grounder.from_checkpoint``."""
+    device: str | torch.device = "cuda", quantize: bool = False,
+):
+    """An artifact directory (``export.json`` in it) → ``ExportedGrounder``,
+    a checkpoint directory → ``Grounder.from_checkpoint``. Both have
+    ``ground``, ``ground_image``, ``warmup``, ``cfg``, ``vocab``, ``bs`` and
+    ``bucket_sizes``. An artifact fixes its batch size, buckets, format and
+    OOV capacity at export: ``cfg_overrides``, ``quantize`` and an
+    ``oov_slots`` beyond its own are refused."""
     device = resolve_device(device)
-    if (Path(model_dir) / "export.json").exists():
-        raise unported("serving an exported artifact", "queue 1 item 2 (serving formats: export)")
     if data_parallel:
         raise unported("data_parallel=True", "queue 1 item 3 (data parallel)")
+    if (Path(model_dir) / "export.json").exists():
+        if cfg_overrides or quantize:
+            raise ValueError(f"an exported artifact serves as exported; cannot apply "
+                             f"{dict(cfg_overrides or {}, **({'quantize': True} if quantize else {}))}")
+        g = ExportedGrounder.load(model_dir, glove_path=glove_path, device=device)
+        if oov_slots and not g.oov_slots:
+            raise ValueError("this artifact has no OOV capacity — re-export with "
+                             "--weights_as_args=true --oov_slots=N (v3)")
+        return g
     return Grounder.from_checkpoint(
         model_dir, batch_size=batch_size, cfg_overrides=cfg_overrides,
-        oov_slots=oov_slots, glove_path=glove_path, device=device,
+        oov_slots=oov_slots, glove_path=glove_path, device=device, quantize=quantize,
     )
 
 
@@ -388,8 +403,7 @@ def main(argv: list[str] | None = None) -> None:
     window_ms = float(overrides.pop("window_ms", "5"))
     max_queue = int(overrides.pop("max_queue", "0")) or None
     host = overrides.pop("host", "127.0.0.1")
-    if is_true(overrides.pop("quantize", "false")):
-        raise unported("quantize=True", INT8_ITEM)
+    quantize = is_true(overrides.pop("quantize", "false"))
     dp = is_true(overrides.pop("data_parallel", "false"))
     warm = is_true(overrides.pop("warmup", "true"))
     oov_slots = int(overrides.pop("oov_slots", "0"))
@@ -397,7 +411,7 @@ def main(argv: list[str] | None = None) -> None:
     device = overrides.pop("device", "cuda")
     g = load_server_model(args[0], batch_size=bs, cfg_overrides=overrides or None,
                           data_parallel=dp, oov_slots=oov_slots, glove_path=glove_path,
-                          device=device)
+                          device=device, quantize=quantize)
     if warm:
         t0 = time.time()
         print(f"warming buckets {g.bucket_sizes} …", flush=True)
