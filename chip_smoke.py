@@ -37,6 +37,15 @@ training to ``configs/flickr30k_grouped.json`` (24 images × 5 phrases,
 K1/K2 at B = 120 on its outputs, float32 grouped validation against flat,
 the grouped step against a flat step of the same 120 pairs in turns),
 SSD-VGG16 with per-level heads (A = 17460), and remat against no remat.
+Phase 11, after phase 7, drives the host data path and the operator tools
+on phase 6's data and checkpoint: the native image library (built with g++
+on the card's host; every PNG must decode through it), decode ms native
+against PIL, the loader's host ms per batch (CSV, PIL only, packed cache,
+host normalization), serving decode, one epoch of ``main_dist`` through the
+packed cache (its first batch byte-equal to the CSV path's, K1 and K2 once
+a step), ``time_fn`` and ``profile_trace`` on the eval step, then
+``python -m zsgnet_tpu_torch.doctor``, ``demo`` and ``viz`` as processes of
+their own and ``ckpt_info`` on the checkpoint and the demo's artifact.
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after. Every phase is fatal on failure. The
 next-to-last line of standard output is a JSON object describing each
@@ -47,7 +56,9 @@ device it exits 2 and prints no result.
 from __future__ import annotations
 
 import base64
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1564,6 +1575,296 @@ def check_serving_formats(model_dir: Path, data_root: Path, smi: str) -> list[in
     return launches
 
 
+# ------------------------------------------------------------ phase 11
+
+# What the doctor must print on the card.
+DOCTOR_ROWS = ("[  ok  ] cuda device", "H100", "[  ok  ] kernels built", "[  ok  ] smoke (K1 fused loss)",
+               "all required checks passed")
+
+
+class _pil_only:
+    """Decode with PIL for the duration: the native library looks unloaded."""
+
+    def __enter__(self):
+        from zsgnet_tpu_torch.data import native
+
+        self.native, self.lib = native, native._lib
+        native._lib = None
+
+    def __exit__(self, *exc):
+        self.native._lib = self.lib
+
+
+def _child(args: list, cwd: Path) -> subprocess.Popen:
+    """A ``python -m`` child of the checkout, its output piped."""
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+    return subprocess.Popen([sys.executable, "-m", *args], cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _decode_numbers(root: Path) -> dict:
+    """Decode ms per image of 64 of phase 6's 300² PNGs from bytes in memory:
+    the native pipeline against PIL called directly, and their largest
+    pixel difference (≤ 2/255)."""
+    import io
+
+    from PIL import Image
+
+    from zsgnet_tpu_torch.data import native
+
+    blobs = [p.read_bytes() for p in sorted((root / "images").glob("*.png"))[:64]]
+    if len(blobs) != 64:
+        raise AssertionError(f"{len(blobs)} PNGs under {root / 'images'}, expected 64 or more")
+
+    def pil(b):
+        with Image.open(io.BytesIO(b)) as im:
+            return np.asarray(im.convert("RGB").resize((300, 300), Image.BILINEAR), np.uint8)
+
+    fns = {"native": lambda b: native.image_load_u8(b, (300, 300))[0], "pil": pil}
+    times, outs = {k: [] for k in fns}, {}
+    for _ in range(3):
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            outs[name] = [fn(b) for b in blobs]
+            times[name].append((time.perf_counter() - t0) * 1e3 / len(blobs))
+    diff = max(int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max()) for a, b in zip(outs["native"], outs["pil"]))
+    if diff > 2:
+        raise AssertionError(f"native and PIL decodes differ by {diff}/255, more than 2/255")
+    return {"decode_native_ms_per_image": statistics.median(times["native"]),
+            "decode_pil_ms_per_image": statistics.median(times["pil"]), "decode_max_diff_255": diff}
+
+
+def _loader_numbers(kw: dict) -> dict:
+    """The train loader's host ms per batch (B = BATCH, ``cfg.nw`` threads),
+    four ways: the CSV path (native decode, then PIL only), the packed cache
+    and host normalization. ``*_assemble_ms``: one batch decoded and
+    collated on the calling thread (the host work a batch costs);
+    ``*_iter_ms``: the prefetching iterator's wall time per batch over 3
+    epochs. Timed with ``utils.profiling.Timer``. The packed cache is built
+    first (its seconds reported), every image decoded natively."""
+    from zsgnet_tpu_torch.config import get_default_cfg
+    from zsgnet_tpu_torch.data.dataset import get_data
+    from zsgnet_tpu_torch.utils.profiling import Timer
+
+    from zsgnet_tpu_torch.data import native
+
+    base = get_default_cfg().replace(**kw)
+    native.reset_counts()
+    t0 = time.perf_counter()
+    data = get_data(base.replace(use_packed_cache=True))
+    numbers = {"packed_build_s": time.perf_counter() - t0}
+    rows = sum(len(dl.ds) for dl in (data.train_dl, data.valid_dl, data.test_dl))
+    if native.counts() != {"native": rows, "pil": 0}:
+        raise AssertionError(f"the packed cache's build decoded {native.counts()}, expected {rows} native decodes")
+    numbers["packed_build_images"] = rows
+    timer = Timer()
+    ways = {"csv": {}, "csv_pil": {}, "packed": {"use_packed_cache": True}, "float": {"normalize_on_device": False}}
+    for name, over in ways.items():
+        ctx = _pil_only() if name == "csv_pil" else contextlib.nullcontext()
+        with ctx:
+            dl = get_data(base.replace(**over)).train_dl
+            batches = dl._batch_indices()
+            for _ in range(2):
+                for bi in range(len(batches)):
+                    with timer.section(f"{name}_assemble"):
+                        dl._assemble(bi, batches)
+            n = 0
+            with timer.section(f"{name}_epochs"):
+                for epoch in range(3):
+                    dl.set_epoch(epoch)
+                    n += sum(1 for _ in dl)
+        summary = timer.summary()
+        numbers[f"{name}_assemble_ms"] = summary[f"{name}_assemble"]["mean_ms"]
+        numbers[f"{name}_iter_ms"] = summary[f"{name}_epochs"]["total_s"] * 1e3 / n
+    numbers["nw"] = base.nw
+    return numbers
+
+
+def _serving_decode(kw: dict) -> dict:
+    """``prep_chunk`` (decode, resize, padding) of 1 and of BATCH requests,
+    median of 5, native against PIL in this run."""
+    from zsgnet_tpu_torch.config import get_default_cfg
+    from zsgnet_tpu_torch.data.vocab import Vocab
+    from zsgnet_tpu_torch.predict import prep_chunk
+
+    cfg = get_default_cfg().replace(**kw)
+    root = Path(kw["data_dir"]) / "synthetic"
+    val = pd.read_csv(root / "csv_dir" / "val.csv")
+    paths = [root / "images" / str(p) for p in val["img_id"][:BATCH]]
+    queries = [str(q) for q in val["query"][:BATCH]]
+    vocab = Vocab.load(root / "csv_dir" / "vocab.json")
+    out = {}
+    for n in (1, BATCH):
+        out[f"serving_decode_native_ms_{n}"] = _median_ms(lambda n=n: prep_chunk(cfg, vocab, n, paths[:n], queries[:n]))
+        with _pil_only():
+            out[f"serving_decode_pil_ms_{n}"] = _median_ms(lambda n=n: prep_chunk(cfg, vocab, n, paths[:n], queries[:n]))
+    return out
+
+
+def _trace_device_ms(path: Path) -> float:
+    """Sum of the kernel durations (ms) in a Chrome trace."""
+    events = json.loads(path.read_text())["traceEvents"]
+    return sum(e.get("dur", 0.0) for e in events if e.get("cat") == "kernel") / 1e3
+
+
+def _eval_profile(kw: dict, tmp: Path, smi: str) -> dict:
+    """``time_fn`` over the eval step at B = BATCH, a ``profile_trace`` of
+    5 steps whose Chrome trace must hold kernel events, and the achieved
+    rate ``flops_estimate(cfg) × BATCH / device ms``."""
+    from zsgnet_tpu_torch.config import get_default_cfg
+    from zsgnet_tpu_torch.data.dataset import get_data
+    from zsgnet_tpu_torch.models.zsgnet import anchor_pyramid_for, get_default_net
+    from zsgnet_tpu_torch.parallel.train_step import make_eval_step
+    from zsgnet_tpu_torch.utils.profiling import flops_estimate, profile_trace, time_fn
+
+    cfg = get_default_cfg().replace(**kw)
+    data = get_data(cfg)
+    batch = next(iter(data.valid_dl))
+    model = get_default_net(cfg, len(data.vocab), seed=SEED, device=CUDA)
+    step = make_eval_step(cfg, anchor_pyramid_for(cfg), device=CUDA)
+    secs, ev = time_fn(step, model, batch, warmup=3, iters=20)
+    if not torch.isfinite(ev["loss"]).all():
+        raise AssertionError("non-finite eval loss under time_fn")
+    for attempt in range(3):  # the profiler now and then returns a window without device events
+        with profile_trace(tmp / "trace") as prof:
+            for _ in range(5):
+                step(model, batch)
+        device_ms = _trace_device_ms(prof.trace_path) / 5
+        if device_ms > 0:
+            break
+    else:
+        raise AssertionError(f"profile_trace wrote {prof.trace_path} without kernel events, 3 times")
+    flops = flops_estimate(cfg)
+    return {"eval_time_fn_ms": secs * 1e3, "eval_device_ms": device_ms, "flops_per_query": flops,
+            "achieved_tflops": flops * BATCH / (device_ms / 1e3) / 1e12, "trace_bytes": prof.trace_path.stat().st_size}
+
+
+def check_host_data(tmp: Path, run_dir: Path, smi: str) -> list[int]:
+    """Phase 11, the host data path and the operator tools, on phase 6's
+    300² synthetic data and checkpoint: the native library (built with g++
+    here; every PNG of the phase must decode through it), decode and loader
+    host ms, the packed cache's build, serving decode, one packed epoch of
+    ``main_dist`` (its first batch byte-equal to the CSV path's, K1 and K2
+    once a step), the profiling helpers on the eval step, then the doctor,
+    the demo, ``ckpt_info`` and ``viz`` as a user runs them. Returns the
+    (K1, K2, K3) launches of the packed run."""
+    from zsgnet_tpu_torch import ckpt_info
+    from zsgnet_tpu_torch.config import get_default_cfg
+    from zsgnet_tpu_torch.data import native
+    from zsgnet_tpu_torch.data.dataset import get_data
+    from zsgnet_tpu_torch.data.packed import PackedDataset
+    from zsgnet_tpu_torch.main import main_dist
+    from zsgnet_tpu_torch.models.zsgnet import ZSGNet
+    from zsgnet_tpu_torch.ops.cuda.fused_bottleneck import fused_bottleneck_infer
+    from zsgnet_tpu_torch.ops.cuda.fused_loss import fused_match_loss, fused_match_loss_backward
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    status = native.status()
+    log(f"host data: native library {status!r} (has_jpeg {native.has_jpeg()}) in {time.perf_counter() - t0:.2f} s")
+    if not native.available():
+        raise AssertionError(f"the native image library did not build on this machine: {status}")
+    root = tmp / "synthetic"
+    kw = dict(ds_to_use="synthetic", data_dir=str(tmp), tmp_path=str(run_dir), epochs=1, bs=BATCH, seed=SEED,
+              log_every=1)
+    numbers = _decode_numbers(root)
+    numbers.update(_loader_numbers(kw))
+    numbers.update(_serving_decode(kw))
+    log(f"host data numbers on {smi}: {json.dumps(numbers)}")
+
+    # One packed epoch through main_dist; its first batch is the CSV path's.
+    # From here on every decode must go through the native library.
+    native.reset_counts()
+    cfg = get_default_cfg().replace(**kw)
+    csv_first = get_data(cfg).train_dl.first_batch()
+    packed = get_data(cfg.replace(use_packed_cache=True))
+    if not isinstance(packed.train_dl.ds, PackedDataset):
+        raise AssertionError(f"use_packed_cache loaded {type(packed.train_dl.ds).__name__}")
+    packed_first = packed.train_dl.first_batch()
+    for k, v in csv_first.items():
+        if v.dtype != packed_first[k].dtype or v.tobytes() != packed_first[k].tobytes():
+            raise AssertionError(f"packed first batch differs from the CSV path's at {k!r}")
+    kernels = (fused_match_loss, fused_match_loss_backward, fused_bottleneck_infer)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    metrics = main_dist("packed", device=CUDA, use_packed_cache=True, **kw)
+    torch.cuda.synchronize()
+    launches = [k.launches for k in kernels]
+    rows = {uid: json.loads((run_dir / "logs" / f"{uid}.jsonl").read_text().splitlines()[-1])
+            for uid in ("smoke", "packed")}
+    steps, val_batches = rows["packed"]["step"], len(packed.valid_dl)
+    # K2 once a train step; K1 once a train step and once a validation batch
+    # (fit validates the epoch, main_dist once more after it).
+    if launches != [steps + 2 * val_batches, steps, 0] or steps != N_TRAIN // BATCH:
+        raise AssertionError(f"packed run: {steps} steps, {val_batches} val batches, (K1, K2, K3) launches {launches}")
+    if not all(np.isfinite(v) for v in metrics.values()) or not np.isfinite(rows["packed"]["train_total"]):
+        raise AssertionError(f"packed run metrics {metrics}, row {rows['packed']}")
+    t_packed = time.perf_counter() - t0
+    # The same epoch through the CSV path, warm as the packed run was (phase
+    # 6's epoch was the process's first, cold).
+    main_dist("csv_warm", device=CUDA, **kw)
+    rows["csv_warm"] = json.loads((run_dir / "logs" / "csv_warm.jsonl").read_text().splitlines()[-1])
+    numbers.update(packed_qps=rows["packed"]["qps"], csv_warm_qps=rows["csv_warm"]["qps"],
+                   csv_qps_phase6=rows["smoke"]["qps"])
+    log(f"packed main_dist: 1 epoch of {steps} steps + validation in {t_packed:.2f} s, (K1, K2, K3) "
+        f"launches {launches}; first batch byte-equal to the CSV path's; epoch qps packed {rows['packed']['qps']} "
+        f"vs the CSV path's {rows['csv_warm']['qps']} right after it (phase 6's cold epoch {rows['smoke']['qps']}) "
+        f"on {smi}")
+    counts = native.counts()
+    if counts["pil"] or not counts["native"]:
+        raise AssertionError(f"decodes by path {counts}: every synthetic PNG must decode natively")
+    log(f"decodes of the packed run and its first-batch check, by path: {counts}")
+
+    numbers.update(_eval_profile(kw, tmp, smi))
+    log(f"profiling on {smi}: eval step B={BATCH} time_fn {numbers['eval_time_fn_ms']:.3f} ms/call, device "
+        f"{numbers['eval_device_ms']:.3f} ms/call from the Chrome trace, flops_estimate "
+        f"{numbers['flops_per_query']:.4g}/query → {numbers['achieved_tflops']:.2f} TFLOP/s achieved")
+
+    # The tools, as a user runs them: doctor, demo and viz in processes of their own.
+    model_dir = run_dir / "models" / "smoke"
+    children = {}
+    try:
+        children["doctor"] = _child(["zsgnet_tpu_torch.doctor"], tmp)
+        (tmp / "demo").mkdir()
+        children["demo"] = _child(["zsgnet_tpu_torch.demo", "--workdir=."], tmp / "demo")
+        children["viz"] = _child(["zsgnet_tpu_torch.viz", str(model_dir), f"--csv={root / 'csv_dir' / 'val.csv'}",
+                                  f"--out_dir={tmp / 'gallery'}", f"--n={BATCH}", f"--batch_size={BATCH}"], tmp)
+        outs = {name: p.communicate(timeout=300)[0] for name, p in children.items()}
+    finally:
+        for p in children.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name, p in children.items():
+        log(f"{name} (exit {p.returncode}):\n" + "\n".join("    " + x for x in outs[name].strip().splitlines()[-16:]))
+        if p.returncode != 0:
+            raise AssertionError(f"python -m zsgnet_tpu_torch.{name} exited {p.returncode}")
+    for row in DOCTOR_ROWS:
+        if row not in outs["doctor"]:
+            raise AssertionError(f"doctor output lacks {row!r}")
+    drift = float(outs["demo"].split("box drift vs live = ")[1].split()[0])
+    if not drift < 2e-2:
+        raise AssertionError(f"demo box drift {drift}")
+    panels = sorted((tmp / "gallery").glob("*.png"))
+    if len(panels) != BATCH or json.loads(outs["viz"].strip().splitlines()[-1])["panels"] != BATCH:
+        raise AssertionError(f"viz wrote {len(panels)} panels, expected {BATCH}")
+    info = ckpt_info.describe(model_dir)
+    cfg_ckpt = get_default_cfg().replace(**json.loads((model_dir / "cfg.json").read_text()))
+    n_params = sum(p.numel() for p in ZSGNet(cfg_ckpt, cfg_ckpt.vocab_size).parameters())
+    if info["elements"]["params"] != n_params or info["latest_step"] != N_TRAIN // BATCH or info["epoch"] != 1:
+        raise AssertionError(f"ckpt_info {info['elements']} step {info['latest_step']}, the model has {n_params}")
+    art = ckpt_info.describe(tmp / "demo" / "artifact")
+    if art["platforms"] != [CUDA.type] or list(art["programs"]) != [f"{CUDA.type}/serving_fn.pt2"]:
+        raise AssertionError(f"ckpt_info on the demo's artifact: {art}")
+    numbers["demo_box_drift"] = drift
+    log(f"tools: doctor ok, demo box drift {drift:.2e}, viz {len(panels)} panels, ckpt_info params "
+        f"{info['elements']['params']} == the model's {n_params}, artifact {art['programs']}")
+    log(f"host data and tools phase passed in {time.perf_counter() - t_phase:.1f} s on {smi}; numbers "
+        f"{json.dumps(numbers)}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1586,6 +1887,10 @@ def main() -> int:
     t0 = time.perf_counter()
     build.load_all(["fused_loss", "fused_bottleneck"])
     log(f"built fused_loss and fused_bottleneck in parallel in {time.perf_counter() - t0:.2f} s")
+    from zsgnet_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    log(f"native image library: {native.status()} in {time.perf_counter() - t0:.2f} s (g++ on this host)")
 
     from zsgnet_tpu_torch.config import get_default_cfg
     from zsgnet_tpu_torch.data.dataset import BatchLoader, ImgQuDataset
@@ -1697,13 +2002,18 @@ def main() -> int:
         # Phase 7: K3 on layer1.
         k3 = check_bottleneck()
 
+        # Phase 11: the host data path and the tools, on phase 6's data and
+        # checkpoint; after phase 7, whose bench needs the profiler's device
+        # events, and before phase 10.
+        host_launches = check_host_data(Path(tmp), Path(tmp) / "run", smi)
+
         # Phase 10, last: the serving formats (canvas head, int8, exported
         # artifacts) on phase 6's checkpoint. Its many profiler windows and
         # exports left the profiler without device events for phase 7's
         # bench when it ran before it.
         formats_launches = check_serving_formats(Path(tmp) / "run" / "models" / "smoke", root, smi)
-    for k, n, f in zip((k1, k2, k3), serving_launches, formats_launches):
-        k["serving_launches"], k["serving_formats_launches"] = n, f
+    for k, n, f, h in zip((k1, k2, k3), serving_launches, formats_launches, host_launches):
+        k["serving_launches"], k["serving_formats_launches"], k["host_data_launches"] = n, f, h
     log(f"every phase passed in {time.perf_counter() - t_start:.1f} s, the kernels' build included")
 
     print(smi, flush=True)

@@ -50,12 +50,16 @@ def test_vocab_matches_jax(roots, tmp_path):
     assert JVocab.load(tmp_path / "vocab.json").word_to_id == jv.word_to_id
 
 
-def test_dataset_and_eval_loader_match_jax(roots, monkeypatch):
-    """Against the JAX loader's PIL path: its optional native decoder is
-    only pinned to PIL within 2/255."""
-    from zsgnet_tpu.data import native
+@pytest.mark.parametrize("decode", ["native", "pil"])
+def test_dataset_and_eval_loader_match_jax(roots, monkeypatch, decode):
+    """Against the JAX loader with both packages decoding natively (their
+    default), and with both on their PIL fallback (no native library)."""
+    from zsgnet_tpu.data import native as j_native
+    from zsgnet_tpu_torch.data import native as t_native
 
-    monkeypatch.setattr(native, "_load", lambda: None)
+    if decode == "pil":
+        monkeypatch.setattr(j_native, "_load", lambda: None)
+        monkeypatch.setattr(t_native, "_load", lambda: None)
     root = roots[1]
     kw = dict(resize_img=(40, 56), max_qlen=6)
     queries = pd.read_csv(root / "csv_dir" / "train.csv")["query"].tolist()

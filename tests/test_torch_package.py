@@ -56,7 +56,7 @@ def test_serving_modules_load_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-SOURCES = [*sorted(PKG.rglob("*.py")), ROOT / "chip_smoke.py"]
+SOURCES = [*sorted(PKG.rglob("*.py")), PKG / "csrc" / "zsg_image.cpp", ROOT / "chip_smoke.py"]
 
 
 def test_source_scan_covers_the_serving_modules():
@@ -64,6 +64,25 @@ def test_source_scan_covers_the_serving_modules():
             PKG / "data" / "embeddings.py", PKG / "models" / "canvas.py", PKG / "models" / "quant.py",
             *(PKG / "data" / "prep" / f"{m}.py"
               for m in ("__init__", "flickr30k", "referit", "visual_genome", "zero_shot_splits"))} <= set(SOURCES)
+
+
+def test_source_scan_covers_the_host_data_path_and_the_tools():
+    assert {PKG / "data" / "native.py", PKG / "data" / "packed.py", PKG / "utils" / "profiling.py",
+            PKG / "utils" / "debug.py", PKG / "csrc" / "zsg_image.cpp",
+            *(PKG / f"{m}.py" for m in ("ckpt_info", "doctor", "demo", "viz"))} <= set(SOURCES)
+
+
+def test_native_library_builds_from_the_ports_own_source():
+    """The port compiles its own copy of the host decoder into build/native
+    and never loads the JAX package's csrc/libzsgimage.so."""
+    from zsgnet_tpu_torch.data import native
+
+    assert native.SOURCE == PKG / "csrc" / "zsg_image.cpp"
+    assert native.BUILD_DIR == ROOT / "build" / "native"
+    cmd = native.build_command(native.lib_path())
+    assert str(native.SOURCE) in cmd and not any(str(ROOT / "csrc") in a for a in cmd)
+    text = (PKG / "data" / "native.py").read_text()
+    assert "libzsgimage.so" not in text.replace('f"libzsgimage-', "") and "Makefile" not in text
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -89,6 +108,8 @@ def _entry_points():
     from zsgnet_tpu_torch.tools.bench_bottleneck import bench
     from zsgnet_tpu_torch.tools.bench_loss import bench as bench_loss
     from zsgnet_tpu_torch.train.learner import Learner
+    from zsgnet_tpu_torch.demo import demo
+    from zsgnet_tpu_torch.viz import main as viz_main
 
     cfg = Config(resize_img=(64, 64), fpn_ch=16, head_ch=16, emb_dim=8, lstm_dim=8)
     anchors = anchor_pyramid_for(cfg)
@@ -109,13 +130,16 @@ def _entry_points():
         "predict.main": lambda: predict_main(["no_such_dir", "no_such.png", "the red box"]),
         "export.main": lambda: export_main(["no_such_dir", "no_such_out"]),
         "ExportedGrounder.load": lambda: ExportedGrounder.load("no_such_dir"),
+        "demo": lambda: demo("no_such_dir"),
+        "viz.main": lambda: viz_main(["no_such_dir", "--csv=no_such.csv"]),
     }
 
 
 @pytest.mark.parametrize("name", ["get_default_net", "make_eval_step", "make_compute_loss", "Grounder",
                                   "make_train_step", "Learner", "main_dist", "bench_bottleneck",
                                   "bench_loss", "Grounder.from_checkpoint", "load_server_model",
-                                  "serve.main", "predict.main", "export.main", "ExportedGrounder.load"])
+                                  "serve.main", "predict.main", "export.main", "ExportedGrounder.load",
+                                  "demo", "viz.main"])
 def test_entry_points_raise_without_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -171,7 +195,9 @@ def test_variants_are_no_longer_refused(variant):
 def test_unported_options_still_raise_with_their_item(tmp_path, monkeypatch):
     """What the port does not run yet names its ROADMAP.md queue 1 item:
     spatial partitioning 4, data parallel and multi-host 3. The serving
-    formats of item 2 (canvas head, int8, exported artifacts) serve."""
+    formats of item 2 (canvas head, int8, exported artifacts) serve, and
+    item 2's host-data flags (``use_packed_cache``, ``use_tensorboard``,
+    ``normalize_on_device=False``) run."""
     from zsgnet_tpu_torch import main as t_main
     from zsgnet_tpu_torch.config import Config
     from zsgnet_tpu_torch.parallel.train_step import check_supported
@@ -184,6 +210,7 @@ def test_unported_options_still_raise_with_their_item(tmp_path, monkeypatch):
         (lambda: load_server_model(tmp_path / "ckpt", data_parallel=True, device="cpu"), "queue 1 item 3"),
     ]
     check_servable(Config(head_canvas=True, quant_mode="int8"))
+    check_supported(Config(use_packed_cache=True, use_tensorboard=True, normalize_on_device=False))
     for fn, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             fn()

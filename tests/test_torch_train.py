@@ -257,6 +257,43 @@ def test_fit_warns_past_decay_horizon(synth_root, tmp_path, capsys):
     assert learn.state.step == 0
 
 
+def _tb_scalars(tb_dir) -> dict[tuple[str, int], float]:
+    """(tag, step) → value of every scalar in the TensorBoard event files."""
+    import struct
+
+    from tensorboardX.proto import event_pb2
+
+    out = {}
+    for path in sorted(tb_dir.glob("events.out.tfevents.*")):
+        data, off = path.read_bytes(), 0
+        while off < len(data):
+            (n,) = struct.unpack("<Q", data[off : off + 8])
+            event = event_pb2.Event.FromString(data[off + 12 : off + 12 + n])
+            off += 16 + n
+            for v in event.summary.value:
+                out[(v.tag, event.step)] = v.simple_value
+    return out
+
+
+def test_tensorboard_rows_hold_every_numeric_key(synth_root, tmp_path):
+    """With ``use_tensorboard`` every numeric key of each JSONL row but
+    ``step`` is a scalar at the row's step (its epoch when it has none), as
+    the JAX Learner writes them."""
+    pytest.importorskip("tensorboardX")
+    cfg = tiny_cfg(synth_root, tmp_path, epochs=1, use_tensorboard=True)
+    learn = Learner("t_tb", get_data(cfg), cfg, device="cpu")
+    learn.fit(1)
+    learn._log_row({"epoch": 3, "note": "text", "val_Acc": 0.5, "flag": True})
+    rows = [json.loads(x) for x in learn.log_file.read_text().splitlines()]
+    scalars = _tb_scalars(tmp_path / "logs" / "tb" / "t_tb")
+    want = {(k, int(r.get("step", r.get("epoch", 0)))): float(v) for r in rows for k, v in r.items()
+            if isinstance(v, (int, float)) and k != "step"}
+    assert len(rows) == 2 and ("train_total", 2) in want and ("val_Acc", 3) in want
+    assert set(scalars) == set(want)
+    for key, v in want.items():
+        assert scalars[key] == pytest.approx(v, rel=1e-6), key
+
+
 def test_validation_uses_ema_weights_with_live_bn_stats(synth_root, tmp_path):
     cfg = tiny_cfg(synth_root, tmp_path, ema_decay=0.9)
     data = get_data(cfg)

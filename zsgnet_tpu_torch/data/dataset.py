@@ -2,21 +2,27 @@
 ``zsgnet_tpu/data/dataset.py`` for one device.
 
 The unified CSV schema (``img_id``, pixel ``x1 y1 x2 y2`` or a JSON
-``bbox`` column, ``query``, optional ``case``), PIL-bilinear resize to
-``cfg.resize_img``, uint8 HWC images (the model normalizes them on the
-device), queries padded to ``cfg.max_qlen``, and boxes as normalized
-[-1, 1] tlbr (y1, x1, y2, x2).
+``bbox`` column, ``query``, optional ``case``), Pillow-bilinear resize to
+``cfg.resize_img``, queries padded to ``cfg.max_qlen``, and boxes as
+normalized [-1, 1] tlbr (y1, x1, y2, x2).
+
+Images decode as the JAX package decodes them: PNG and JPEG through the
+native pipeline (``data/native.py``) first, PIL for what it cannot take,
+so both packages see the same pixels. With ``cfg.normalize_on_device``
+(the default) items carry uint8 HWC images that the model normalizes on
+the device; with it off they carry float32 images normalized on the host.
 
 ``BatchLoader`` visits the JAX loader's batches in the JAX loader's order:
 epoch ``e`` shuffles with ``default_rng((seed, e))``; ``drop_last=False``
 pads the tail by wrapping and marks the real rows in ``valid``. ``get_data``
 builds the train (shuffled, drop-last), validation and test loaders and
-caches the vocab beside the CSVs. With ``cfg.queries_per_img`` Q > 1 the
-loaders serve ``GroupedDataset`` units of one image and Q phrases, the
-JAX package's units exactly.
+caches the vocab beside the CSVs. ``cfg.use_packed_cache`` reads each split
+through the packed uint8 cache (``data/packed.py``, the JAX package's
+on-disk format). With ``cfg.queries_per_img`` Q > 1 the loaders serve
+``GroupedDataset`` units of one image and Q phrases, the JAX package's
+units exactly.
 
-Not ported yet: host sharding (data parallel) and the packed uint8 cache
-(``cfg.use_packed_cache`` reads the same data through the CSV path here).
+Not ported yet: host sharding (data parallel).
 """
 
 from __future__ import annotations
@@ -35,22 +41,61 @@ import numpy as np
 import pandas as pd
 
 from zsgnet_tpu_torch.config import Config
+from zsgnet_tpu_torch.data import native
 from zsgnet_tpu_torch.data.vocab import Vocab
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
 
 
+def _load_image(path: Path, resize_hw: tuple[int, int]) -> tuple[np.ndarray, tuple[int, int]]:
+    """→ (HWC float32 image normalized on the host, original (H, W)).
+
+    PNG and JPEG decode, resize and normalize in one native call; other
+    formats, and files the library refuses, decode with PIL and resize and
+    normalize natively; without the library, PIL does it all."""
+    path = Path(path)
+    if path.suffix.lower() in (".png", ".jpg", ".jpeg"):
+        out = native.image_load(path.read_bytes(), resize_hw, IMAGENET_MEAN, IMAGENET_STD)
+        if out is not None:
+            return out
+    from PIL import Image
+
+    native.record("pil")
+    with Image.open(path) as im:
+        im = im.convert("RGB")
+        orig_w, orig_h = im.size
+        arr_u8 = np.asarray(im, dtype=np.uint8)
+    out2 = native.resize_normalize_rgb(arr_u8, resize_hw, IMAGENET_MEAN, IMAGENET_STD)
+    if out2 is not None:
+        return out2, (orig_h, orig_w)
+    with Image.open(path) as im:  # pure-PIL fallback
+        im = im.convert("RGB").resize((resize_hw[1], resize_hw[0]), Image.BILINEAR)
+        arr = np.asarray(im, dtype=np.float32) / 255.0
+    return (arr - IMAGENET_MEAN) / IMAGENET_STD, (orig_h, orig_w)
+
+
 def load_image_bytes_u8(
     data: bytes, resize_hw: tuple[int, int]
 ) -> tuple[np.ndarray, tuple[int, int]]:
-    """Encoded bytes → (HWC uint8 image resized with PIL bilinear, original (H, W))."""
+    """Encoded bytes → (HWC uint8 resized image, original (H, W)): native
+    PNG/JPEG decode first, then PIL decode with the native resize, then PIL
+    alone. Also the serving daemon's decode of request-body images."""
+    out = native.image_load_u8(data, resize_hw)
+    if out is not None:
+        return out
     from PIL import Image
 
+    native.record("pil")
     with Image.open(io.BytesIO(data)) as im:
         im = im.convert("RGB")
         orig_w, orig_h = im.size
-        im = im.resize((resize_hw[1], resize_hw[0]), Image.BILINEAR)
+        arr_u8 = np.asarray(im, dtype=np.uint8)
+    out2 = native.resize_u8(arr_u8, resize_hw)
+    if out2 is not None:
+        return out2, (orig_h, orig_w)
+    with Image.open(io.BytesIO(data)) as im:  # pure-PIL fallback
+        im = im.convert("RGB").resize((resize_hw[1], resize_hw[0]), Image.BILINEAR)
         return np.asarray(im, dtype=np.uint8), (orig_h, orig_w)
 
 
@@ -84,7 +129,8 @@ class ImgQuDataset:
     """One split of a grounding dataset backed by a CSV file.
 
     ``__getitem__`` returns the reference's batch keys: ``img`` (H, W, 3
-    uint8), ``qvec`` (max_qlen int32), ``qlens`` (int32), ``annot`` (4,
+    uint8, or float32 normalized on the host when ``cfg.normalize_on_device``
+    is off), ``qvec`` (max_qlen int32), ``qlens`` (int32), ``annot`` (4,
     normalized tlbr), ``orig_annot`` (4, pixel xyxy), ``img_size`` (2,
     original H W), ``idxs`` (int32), ``case`` (int32, -1 if none).
     """
@@ -106,7 +152,8 @@ class ImgQuDataset:
         return [str(q) for q in self.df["query"]]
 
     def __getitem__(self, i: int) -> dict[str, np.ndarray]:
-        img, orig_hw = _load_image_u8(self.image_dir / str(self.df.iloc[i]["img_id"]), self.cfg.resize_img)
+        loader = _load_image_u8 if self.cfg.normalize_on_device else _load_image
+        img, orig_hw = loader(self.image_dir / str(self.df.iloc[i]["img_id"]), self.cfg.resize_img)
         return {"img": img, **self.meta_item(i, orig_hw)}
 
     def meta_item(self, i: int, orig_hw: tuple[int, int]) -> dict[str, np.ndarray]:
@@ -132,15 +179,16 @@ class GroupedDataset:
 
     An image with n phrases gives ceil(n/Q) units; a short unit is filled
     by wrapping over the image's own phrases, and ``pair_valid`` (Q,) marks
-    the positions before the wrap. Items: ``img`` (H, W, 3), decoded once
-    through the first row, ``qvec`` (Q, T), ``qlens``/``idxs``/``case``
+    the positions before the wrap. Over an ``ImgQuDataset`` or a
+    ``PackedDataset``. Items: ``img`` (H, W, 3), read once through the first
+    row, ``qvec`` (Q, T), ``qlens``/``idxs``/``case``
     (Q,), ``annot``/``orig_annot`` (Q, 4), ``img_size`` (2,), ``pair_valid``.
     With ``reseed`` each epoch permutes every image's phrases first, from
     ``default_rng((cfg.seed, epoch))`` (``BatchLoader.set_epoch``); the unit
     count does not depend on the permutation, so an epoch's length and a
     mid-epoch resume's batch index hold."""
 
-    def __init__(self, ds: ImgQuDataset, img_ids, queries_per_img: int, reseed: bool = False):
+    def __init__(self, ds, img_ids, queries_per_img: int, reseed: bool = False):
         self.ds = ds
         self.cfg = ds.cfg
         self.q = int(queries_per_img)
@@ -180,8 +228,11 @@ class GroupedDataset:
     def __getitem__(self, i: int) -> dict[str, np.ndarray]:
         unit = self.units[i]
         first = self.ds[unit[0]]
-        hw = (float(first["img_size"][0]), float(first["img_size"][1]))
-        rows = [first] + [self.ds.meta_item(j, hw) for j in unit[1:]]
+        if hasattr(self.ds, "meta_item"):
+            hw = (float(first["img_size"][0]), float(first["img_size"][1]))
+            rows = [first] + [self.ds.meta_item(j, hw) for j in unit[1:]]
+        else:  # PackedDataset: a row is a memmap read, no decode
+            rows = [first] + [self.ds[j] for j in unit[1:]]
         out = {k: np.stack([r[k] for r in rows])
                for k in ("qvec", "qlens", "annot", "orig_annot", "idxs", "case")}
         out.update(img=first["img"], img_size=first["img_size"],
@@ -208,7 +259,7 @@ class BatchLoader:
     """
 
     def __init__(
-        self, ds: ImgQuDataset | GroupedDataset, batch_size: int, shuffle: bool, seed: int = 0,
+        self, ds, batch_size: int, shuffle: bool, seed: int = 0,
         nw: int = 4, drop_last: bool = True, prefetch_depth: int = 2,
     ):
         self.ds = ds
@@ -337,6 +388,8 @@ def get_data(cfg: Config) -> DataWrap:
     (``"all"``) and cached beside the CSVs under the JAX package's names,
     so either package reuses the other's cache.
 
+    ``cfg.use_packed_cache`` reads every split through its packed cache,
+    ``packed_<split>_<h>x<w>`` beside the CSVs, built on first use.
     With ``cfg.queries_per_img > 1`` every split is grouped by ``img_id``
     (train reseeded per epoch under ``cfg.grouped_reseed``); the train split
     needs the column, an evaluation split without it stays flat.
@@ -372,9 +425,15 @@ def get_data(cfg: Config) -> DataWrap:
         if not csv_path.exists():
             return None
         ds = ImgQuDataset(csv_path, img_dir, vocab, cfg)
+        img_ids = ds.df["img_id"] if "img_id" in ds.df.columns else None
+        if cfg.use_packed_cache:
+            from zsgnet_tpu_torch.data.packed import PackedDataset
+
+            h, w = cfg.resize_img
+            ds = PackedDataset(ds, csv_dir / f"packed_{split}_{h}x{w}")
         if cfg.queries_per_img > 1:
-            if "img_id" in ds.df.columns:
-                ds = GroupedDataset(ds, ds.df["img_id"], cfg.queries_per_img,
+            if img_ids is not None:
+                ds = GroupedDataset(ds, img_ids, cfg.queries_per_img,
                                     reseed=cfg.grouped_reseed and split == "train")
             elif split == "train":
                 raise ValueError("queries_per_img > 1 needs an img_id column")

@@ -76,8 +76,9 @@ def to_device(a: np.ndarray, device: torch.device) -> Tensor:
 
 
 def load_image(im: str | Path | np.ndarray, resize_hw: tuple[int, int]) -> tuple[np.ndarray, tuple]:
-    """A path (decoded and resized with PIL) or an HWC uint8 array already
-    at ``resize_hw`` → (image, original (H, W))."""
+    """A path (decoded and resized as the dataset does: native PNG/JPEG
+    first, PIL for the rest) or an HWC uint8 array already at ``resize_hw``
+    → (image, original (H, W))."""
     if isinstance(im, np.ndarray):
         arr = im.astype(np.uint8)
         if arr.shape[:2] != tuple(resize_hw):

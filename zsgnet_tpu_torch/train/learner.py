@@ -26,10 +26,14 @@ and ``vocab.json`` beside them. It keeps the JAX Learner's semantics:
   (``pair_valid``), so the metrics equal the flat loader's; ``qps`` counts
   pairs.
 
+* with ``cfg.use_tensorboard`` every JSONL row is also written as
+  TensorBoard scalars under ``<tmp_path>/logs/tb/<uid>`` through
+  ``tensorboardX``, or ``torch.utils.tensorboard`` without it, when one is
+  installed (never a hard dependency).
+
 The loss is read back from the device every ``cfg.log_every`` steps, one
 interval late, so the loop never waits on the device for it. Not ported
-yet (it raises): ``mesh_spatial > 1``; ``do_dist`` runs on the one device;
-``use_tensorboard`` writes nothing.
+yet (it raises): ``mesh_spatial > 1``; ``do_dist`` runs on the one device.
 """
 
 from __future__ import annotations
@@ -134,6 +138,17 @@ class Learner:
         for d in (self.log_dir, self.model_dir, self.pred_dir):
             d.mkdir(parents=True, exist_ok=True)
         self.log_file = self.log_dir / f"{uid}.jsonl"
+        self._tb = None  # the SummaryWriter class, with cfg.use_tensorboard
+        if cfg.use_tensorboard:
+            try:
+                from tensorboardX import SummaryWriter
+            except ImportError:
+                try:  # the same event files, through the tensorboard package
+                    from torch.utils.tensorboard import SummaryWriter
+                except ImportError as e:
+                    SummaryWriter = None
+                    print(f"use_tensorboard: no TensorBoard rows ({e}); the JSONL log is written")
+            self._tb = SummaryWriter
 
         self.model = get_default_net(cfg, len(data.vocab), seed=cfg.seed, device=self.device)
         if cfg.glove_path:
@@ -423,6 +438,14 @@ class Learner:
     def _log_row(self, row: dict[str, Any]) -> None:
         with open(self.log_file, "a") as f:
             f.write(json.dumps(row) + "\n")
+        if self._tb is not None:
+            step = int(row.get("step", row.get("epoch", 0)))
+            # A writer per row, closed at once: a writer's flush() leaves the
+            # events still queued in its thread unwritten.
+            with self._tb(str(self.log_dir / "tb" / self.uid), filename_suffix=f".{time.time_ns()}") as tb:
+                for k, v in row.items():
+                    if isinstance(v, (int, float)) and k != "step":
+                        tb.add_scalar(k, float(v), step)
         keys = ("epoch", "train_loss_smooth", "val_Acc", "val_MaxPos", "qps")
         print("  ".join(
             f"{k}={row[k]:.4g}" if isinstance(row.get(k), float) else f"{k}={row.get(k)}"
