@@ -46,6 +46,20 @@ packed cache (its first batch byte-equal to the CSV path's, K1 and K2 once
 a step), ``time_fn`` and ``profile_trace`` on the eval step, then
 ``python -m zsgnet_tpu_torch.doctor``, ``demo`` and ``viz`` as processes of
 their own and ``ckpt_info`` on the checkpoint and the demo's artifact.
+Phase 12, after phase 11, drives data parallel on the one card: (a)
+``python -m torch.distributed.run --nproc_per_node=1`` on this script's
+worker, which runs the command line's ``main()`` with ``--multi_host=True``
+(NCCL, world 1) for one epoch and holds its log row and K1/K2 launches
+(10/4) against a plain ``main_dist`` of the same config and seed, then times
+the data-parallel train step against the plain one in turns; (b) two gloo
+ranks sharing ``cuda:0`` (B = 8 each of the global 16, float32, lr 1e-6)
+against one process on the same global batches (per-step losses,
+parameters, BatchNorm statistics, validation), K1 and K2 held on each
+rank's outputs, one launch each per step and rank, and the all-reduce's
+share of the step from the profiler (gloo on one card: not a scaling
+figure); (c) ``load_server_model(data_parallel=True)`` and a two-replica
+``Grounder`` against the single-device one in float32, with no kernel
+launch.
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after. Every phase is fatal on failure. The
 next-to-last line of standard output is a JSON object describing each
@@ -106,20 +120,24 @@ def device_kernels(fn, iters: int) -> list[tuple[str, float, float]]:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    # User annotations on the device timeline (Optimizer.step#Adam.step)
-    # span kernels that are counted on their own; they carry the name of
-    # their host-side range, which no kernel has.
-    events = prof.key_averages()
-    host_names = {e.key for e in events if e.device_type == DeviceType.CPU}
-    rows = [
-        (e.key, getattr(e, "self_device_time_total", 0.0) / 1e3 / iters, e.count / iters)
-        for e in events
-        if e.device_type == DeviceType.CUDA and e.key not in host_names
-    ]
+    rows: list = []
+    for _ in range(3):  # the profiler now and then returns a window without its device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        # User annotations on the device timeline (Optimizer.step#Adam.step)
+        # span kernels that are counted on their own; they carry the name of
+        # their host-side range, which no kernel has.
+        events = prof.key_averages()
+        host_names = {e.key for e in events if e.device_type == DeviceType.CPU}
+        rows = [
+            (e.key, getattr(e, "self_device_time_total", 0.0) / 1e3 / iters, e.count / iters)
+            for e in events
+            if e.device_type == DeviceType.CUDA and e.key not in host_names
+        ]
+        if rows:
+            break
     return sorted(rows, key=lambda r: -r[1])
 
 
@@ -1865,6 +1883,328 @@ def check_host_data(tmp: Path, run_dir: Path, smi: str) -> list[int]:
     return launches
 
 
+# ------------------------------------------------------------ phase 12
+
+DP_STEPS = 3  # float32 steps of the world-2 run at lr 1e-6
+DP_KEY = "DP_RESULT "  # a worker's result line
+
+
+def _torchrun(nproc: int, mode: str, args: dict, timeout: float = 420.0) -> str:
+    """``python -m torch.distributed.run --standalone --nproc_per_node=nproc``
+    on this script's data-parallel worker (``mode``, ``args``); → its output.
+    Fails on a non-zero exit or the timeout."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={nproc}",
+           str(Path(__file__).resolve()), "--dp-worker", mode, json.dumps(args)]
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+    r = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, env=env, capture_output=True, text=True,
+                       timeout=timeout)
+    if r.returncode != 0:
+        raise AssertionError(f"torchrun {mode} exited {r.returncode}:\n{r.stdout[-4000:]}\n{r.stderr[-4000:]}")
+    return r.stdout
+
+
+def _dp_results(out: str) -> list[dict]:
+    return [json.loads(x[len(DP_KEY):]) for x in out.splitlines() if x.startswith(DP_KEY)]
+
+
+def _dp_nccl_worker(args: dict) -> None:
+    """Phase 12a, one NCCL rank: the command line's ``main()`` under
+    ``--multi_host=True`` for one epoch, then the data-parallel train step
+    against the plain one, in turns."""
+    import torch.distributed as dist
+
+    from zsgnet_tpu_torch import main as t_main
+    from zsgnet_tpu_torch.config import get_default_cfg
+    from zsgnet_tpu_torch.data.dataset import get_data
+    from zsgnet_tpu_torch.models.zsgnet import anchor_pyramid_for, get_default_net
+    from zsgnet_tpu_torch.parallel.mesh import init_distributed
+    from zsgnet_tpu_torch.parallel.train_step import create_train_state, make_train_step
+
+    kw = args["kw"]
+    _zero_counts()
+    sys.argv = ["zsgnet_tpu_torch.main", "dp_nccl", "--multi_host=True", *[f"--{k}={v}" for k, v in kw.items()]]
+    t0 = time.perf_counter()
+    t_main.main()
+    torch.cuda.synchronize()
+    wall, launches = time.perf_counter() - t0, _counts()
+
+    mesh = init_distributed("cuda")
+    cfg = get_default_cfg().replace(**kw)
+    data = get_data(cfg, shard_id=mesh.rank, num_shards=mesh.world_size)
+    batches = list(data.train_dl)
+    anchors = anchor_pyramid_for(cfg)
+    steps = {}
+    for name, m in (("ddp", mesh), ("plain", None)):
+        model = get_default_net(cfg.replace(bn_sync_axis=cfg.data_axis) if m else cfg, len(data.vocab),
+                                seed=cfg.seed, device=mesh.device)
+        steps[name] = (make_train_step(cfg, anchors, mesh.device, m), create_train_state(cfg, model))
+    times: dict[str, list[float]] = {"ddp": [], "plain": []}
+    for i in range(8):
+        for name, (step, state) in steps.items():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step(state, batches[i % len(batches)])
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t1) * 1e3)
+    device_ms = {}
+    for name, (step, state) in steps.items():
+        kernels = device_kernels(lambda: step(state, batches[0]), 3)
+        device_ms[name] = sum(t for _, t, _ in kernels)
+        device_ms[f"{name}_nccl"] = sum(t for k, t, _ in kernels if "nccl" in k.lower())
+    backend = mesh.backend
+    dist.destroy_process_group()
+    print(DP_KEY + json.dumps({"rank": mesh.rank, "backend": backend, "main_wall_s": wall, "launches": launches,
+                               "step_ms": {k: statistics.median(v[2:]) for k, v in times.items()},
+                               "step_ms_all": times, "device_ms": device_ms}), flush=True)
+
+
+def _dp_gloo_worker(args: dict) -> None:
+    """Phase 12b, one of two gloo ranks sharing ``cuda:0``: DP_STEPS float32
+    train steps of its half of each global batch, validation, K1 and K2 held
+    against their plain versions on its own outputs, and the all-reduce's
+    share of a step from the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from zsgnet_tpu_torch.config import get_default_cfg
+    from zsgnet_tpu_torch.data.dataset import get_data
+    from zsgnet_tpu_torch.parallel.mesh import init_distributed
+    from zsgnet_tpu_torch.parallel.train_step import pairs_and_weights, to_device
+    from zsgnet_tpu_torch.train.learner import Learner
+
+    mesh = init_distributed("cuda:0", backend="gloo")
+    cfg = get_default_cfg().replace(**args["kw"])
+    data = get_data(cfg, shard_id=mesh.rank, num_shards=mesh.world_size)
+    learn = Learner("dp_gloo", data, cfg, device=mesh.device, mesh=mesh)
+    batches = [b for b, _ in zip(data.train_dl, range(DP_STEPS))]
+    _zero_counts()
+    losses = []
+    for b in batches:
+        learn.state, ls = learn.train_step(learn.state, b)
+        losses.append({k: float(v) for k, v in ls.items()})
+    torch.cuda.synchronize()
+    launches = _counts()
+    metrics = learn.validate()
+    b0 = to_device(batches[0], mesh.device)
+    with torch.no_grad():
+        out = learn.model.eval()(b0["img"], b0["qvec"], b0["qlens"])
+    annot, w = pairs_and_weights(b0)
+    w = torch.ones(annot.shape[0], device=mesh.device) if w is None else w
+    errs = hold_loss_kernels(f"rank {mesh.rank} of 2 (gloo, cuda:0)", cfg, out, annot, w, learn.anchors)
+    if mesh.rank == 0:
+        torch.save({k: v.cpu() for k, v in learn.model.state_dict().items()}, Path(args["out"]) / "gloo_state.pt")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        learn.train_step(learn.state, batches[0])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        learn.train_step(learn.state, batches[0])
+        torch.cuda.synchronize()
+    # The label's host range (host events; the window's device events are
+    # the ones the profiler now and then drops). It also shows on the
+    # device's timeline under the same name, which would count it twice.
+    ar = [e for e in prof.key_averages() if e.key == "dp::all_reduce" and e.device_type == DeviceType.CPU]
+    if not ar:
+        raise AssertionError(f"rank {mesh.rank}: no dp::all_reduce range in the profile of a step")
+    ar_ms = sum(e.cpu_time_total for e in ar) / 1e3
+    print(DP_KEY + json.dumps({
+        "rank": mesh.rank, "backend": mesh.backend, "device": str(mesh.device), "losses": losses,
+        "launches": launches, "metrics": metrics, "k1_err": errs[0], "k2_err": errs[1],
+        "step_ms": statistics.median(times), "all_reduce_ms": ar_ms,
+        "all_reduce_calls": sum(e.count for e in ar)}), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def dp_worker(mode: str, args: str) -> int:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    {"nccl": _dp_nccl_worker, "gloo": _dp_gloo_worker}[mode](json.loads(args))
+    return 0
+
+
+def _state_close(name: str, got: dict, want: dict, p0: dict) -> tuple[float, float]:
+    """The CPU tests' tolerances (tests/test_torch_multihost.py): BatchNorm
+    statistics within atol 1e-3, parameter updates (Adam) within relative L2
+    0.25. → (largest statistic difference, update relative L2)."""
+    stats = [k for k in want if "running_" in k]
+    bn = max(float((got[k].double() - want[k].double()).abs().max()) for k in stats)
+    params = [k for k in want if want[k].is_floating_point() and k not in stats]
+    d_got = torch.cat([(got[k].double() - p0[k].double()).ravel() for k in params])
+    d_want = torch.cat([(want[k].double() - p0[k].double()).ravel() for k in params])
+    rel = float((d_got - d_want).norm() / d_want.norm())
+    if bn > 1e-3 or rel > 0.25:
+        raise AssertionError(f"{name}: BatchNorm statistics off by {bn:.3g} (atol 1e-3), updates by "
+                             f"relative L2 {rel:.3g} (0.25)")
+    return bn, rel
+
+
+def check_data_parallel(tmp: Path, run_dir: Path, smi: str) -> tuple[list[int], dict]:
+    """Phase 12, data parallel on the one card, on phase 6's data and
+    checkpoint. (a) ``torchrun --nproc_per_node=1`` on the command line's
+    ``main()`` with ``--multi_host=True``: NCCL at world 1 against a plain
+    ``main_dist`` of the same config and seed (the same log row within the
+    bf16 range, K1/K2 at 10/4), the data-parallel step timed against the
+    plain one. (b) Two gloo ranks sharing ``cuda:0``, float32, lr 1e-6,
+    against one process on the same global batches (losses, parameters,
+    BatchNorm statistics, validation), K1 and K2 held on each rank's
+    outputs, one launch each per step and rank. (c) Data-parallel serving:
+    ``load_server_model(data_parallel=True)`` and a two-replica Grounder
+    against the single-device Grounder in float32, with no kernel launch.
+    Returns the (K1, K2, K3) launches of (c), and K1's and K2's launches in
+    (a) and on each rank of (b)."""
+    from zsgnet_tpu_torch.config import get_default_cfg
+    from zsgnet_tpu_torch.data.dataset import get_data
+    from zsgnet_tpu_torch.main import main_dist
+    from zsgnet_tpu_torch.ops.cuda.fused_bottleneck import fused_bottleneck_infer
+    from zsgnet_tpu_torch.ops.cuda.fused_loss import fused_match_loss, fused_match_loss_backward
+    from zsgnet_tpu_torch.predict import Grounder
+    from zsgnet_tpu_torch.serve import load_server_model
+    from zsgnet_tpu_torch.train.learner import Learner
+
+    t_phase = time.perf_counter()
+    numbers: dict = {}
+    kw = dict(ds_to_use="synthetic", data_dir=str(tmp), tmp_path=str(tmp / "dp_run"), epochs=1, bs=BATCH,
+              seed=SEED, log_every=1)
+    # (a) NCCL at world 1 through the command line, against a plain main_dist.
+    t0 = time.perf_counter()
+    out = _torchrun(1, "nccl", {"kw": kw})
+    (a,) = _dp_results(out)
+    t_a = time.perf_counter() - t0
+    if a["backend"] != "nccl" or "process group: nccl, 1 rank(s)" not in out:
+        raise AssertionError(f"the torchrun child's process group is {a['backend']}, not nccl")
+    _zero_counts()
+    main_dist("dp_plain", device=CUDA, **kw)
+    torch.cuda.synchronize()
+    plain_launches = _counts()
+    rows = {uid: [json.loads(x) for x in (tmp / "dp_run" / "logs" / f"{uid}.jsonl").read_text().splitlines()]
+            for uid in ("dp_nccl", "dp_plain")}
+    r_dp, r_pl = rows["dp_nccl"][-1], rows["dp_plain"][-1]
+    if len(rows["dp_nccl"]) != 1 or not (tmp / "dp_run" / "models" / "dp_nccl" / "best").is_dir():
+        raise AssertionError(f"the NCCL run wrote {len(rows['dp_nccl'])} log rows and no best/ checkpoint")
+    if tuple(a["launches"]) != plain_launches or plain_launches != (10, 4):
+        raise AssertionError(f"(K1, K2) launches: NCCL run {a['launches']}, plain run {plain_launches}; "
+                             "expected (10, 4)")
+    keys = ("train_total", "train_cls_ls", "train_box_ls", "train_loss_smooth", "val_loss", "val_MeanIoU")
+    rel = {k: abs(r_dp[k] - r_pl[k]) / max(abs(r_pl[k]), 1e-12) for k in keys}
+    if (r_dp["step"], r_dp["val_num_samples"]) != (r_pl["step"], r_pl["val_num_samples"]) or max(rel.values()) > 5e-2 \
+            or abs(r_dp["val_Acc"] - r_pl["val_Acc"]) > 0.05 or not all(np.isfinite(r_dp[k]) for k in keys):
+        raise AssertionError(f"NCCL world-1 row {r_dp} vs the plain run's {r_pl} (bf16 range: rtol 5e-2)")
+    numbers["a"] = {"rel_diff": rel, "acc": (r_dp["val_Acc"], r_pl["val_Acc"]), "launches": a["launches"],
+                    "step_ms": a["step_ms"], "device_ms": a["device_ms"], "child_s": t_a}
+    log(f"data parallel (a): torchrun NCCL world 1, main() --multi_host=True in {a['main_wall_s']:.1f} s "
+        f"(child {t_a:.1f} s); log row vs plain main_dist relative differences "
+        f"{ {k: f'{v:.2e}' for k, v in rel.items()} }, val Acc {r_dp['val_Acc']} vs {r_pl['val_Acc']}; "
+        f"(K1, K2) {a['launches']} == plain {plain_launches}; train step B={BATCH} bf16 in turns on {smi}: "
+        f"data parallel {a['step_ms']['ddp']:.3f} ms vs plain {a['step_ms']['plain']:.3f} ms (median of 6), "
+        f"device {a['device_ms']['ddp']:.3f} vs {a['device_ms']['plain']:.3f} ms/step, NCCL kernels "
+        f"{a['device_ms']['ddp_nccl']:.3f} ms/step")
+
+    # (b) Two gloo ranks on cuda:0 against one process, float32.
+    kw_b = dict(kw, compute_dtype="float32", lr=1e-6, tmp_path=str(tmp / "dp_gloo"))
+    t0 = time.perf_counter()
+    ranks = sorted(_dp_results(_torchrun(2, "gloo", {"kw": kw_b, "out": str(tmp)})), key=lambda r: r["rank"])
+    t_b = time.perf_counter() - t0
+    cfg = get_default_cfg().replace(**kw_b)
+    data = get_data(cfg)
+    ref = Learner("dp_ref", data, cfg, device=CUDA)
+    p0 = {k: v.detach().cpu().clone() for k, v in ref.model.state_dict().items()}
+    want = []
+    for b, _ in zip(data.train_dl, range(DP_STEPS)):
+        ref.state, ls = ref.train_step(ref.state, b)
+        want.append({k: float(v) for k, v in ls.items()})
+    want_metrics = ref.validate()
+    got_state = torch.load(tmp / "gloo_state.pt", weights_only=True)
+    bn, rel_upd = _state_close("world 2 vs world 1", got_state, {k: v.cpu() for k, v in ref.model.state_dict().items()},
+                               p0)
+    for r in ranks:
+        on = "cuda:0" if CUDA.type == "cuda" else "cpu"
+        if r["backend"] != "gloo" or r["device"] != on or tuple(r["launches"]) != (DP_STEPS, DP_STEPS):
+            raise AssertionError(f"rank {r['rank']}: {r['backend']} on {r['device']}, (K1, K2) {r['launches']}")
+        for i, (g, w_) in enumerate(zip(r["losses"], want)):
+            if g["num_pos"] != w_["num_pos"] or not np.allclose([g[k] for k in ("total", "cls_ls", "box_ls")],
+                                                               [w_[k] for k in ("total", "cls_ls", "box_ls")],
+                                                               rtol=1e-4, atol=0):
+                raise AssertionError(f"rank {r['rank']} step {i}: losses {g} vs world 1 {w_} (rtol 1e-4)")
+        m = r["metrics"]
+        if (m["Acc"], m["MaxPos"], m["num_samples"]) != (want_metrics["Acc"], want_metrics["MaxPos"],
+                                                        want_metrics["num_samples"]) or not np.allclose(
+                [m["MeanIoU"], m["loss"]], [want_metrics["MeanIoU"], want_metrics["loss"]], rtol=1e-5):
+            raise AssertionError(f"rank {r['rank']} validation {m} vs world 1 {want_metrics}")
+    share = [r["all_reduce_ms"] / r["step_ms"] for r in ranks]
+    numbers["b"] = {"child_s": t_b, "bn_max_diff": bn, "update_rel_l2": rel_upd,
+                    "loss_rel": max(abs(g["total"] - w_["total"]) / w_["total"] for r in ranks
+                                    for g, w_ in zip(r["losses"], want)),
+                    "step_ms": [r["step_ms"] for r in ranks], "all_reduce_ms": [r["all_reduce_ms"] for r in ranks],
+                    "all_reduce_calls": [r["all_reduce_calls"] for r in ranks], "all_reduce_share": share,
+                    "k1_err": [r["k1_err"] for r in ranks], "k2_err": [r["k2_err"] for r in ranks]}
+    log(f"data parallel (b): 2 gloo ranks sharing cuda:0 ({t_b:.1f} s), {DP_STEPS} float32 steps of B={BATCH} "
+        f"({BATCH // 2} a rank) == world 1: losses within {numbers['b']['loss_rel']:.2e} relative, BatchNorm "
+        f"statistics within {bn:.2e}, updates relative L2 {rel_upd:.3g}, validation {want_metrics}; K1/K2 (1, 1) per step "
+        f"per rank, held on each rank's outputs (max abs err K1 {numbers['b']['k1_err']}, K2 "
+        f"{numbers['b']['k2_err']}); gloo on one card, not a scaling figure: all-reduce "
+        f"{[round(x, 2) for x in numbers['b']['all_reduce_ms']]} ms in {numbers['b']['all_reduce_calls']} calls "
+        f"of a {[round(x, 2) for x in numbers['b']['step_ms']]} ms step = {[f'{x:.1%}' for x in share]} on {smi}")
+    del ref, data
+
+    # (c) Data-parallel serving against the single-device Grounder, float32.
+    kernels = (fused_match_loss, fused_match_loss_backward, fused_bottleneck_infer)
+    for k in kernels:
+        k.launches = 0
+    model_dir = run_dir / "models" / "smoke"
+    f32 = {"compute_dtype": "float32"}
+    one = Grounder.from_checkpoint(model_dir, batch_size=BATCH, cfg_overrides=f32, device=CUDA)
+    dp = load_server_model(model_dir, batch_size=BATCH, cfg_overrides=f32, data_parallel=True, device=CUDA)
+    two = Grounder.from_checkpoint(model_dir, batch_size=BATCH, cfg_overrides=f32, devices=["cuda:0", "cuda:0"])
+    every = [torch.device(CUDA.type, i) for i in range(torch.cuda.device_count())] if CUDA.type == "cuda" else [CUDA]
+    if dp.devices != every or len(two.replicas) != 2:
+        raise AssertionError(f"data-parallel Grounders on {dp.devices} and {two.devices}")
+    val = pd.read_csv(tmp / "synthetic" / "csv_dir" / "val.csv")
+    paths = [tmp / "synthetic" / "images" / str(p) for p in val["img_id"]][:BATCH + 3]
+    queries = [str(q) for q in val["query"]][:BATCH + 3]
+    want_res = one.ground(paths, queries)
+    errs = {}
+    for name, g in (("load_server_model(data_parallel=True)", dp), ("two replicas on cuda:0", two)):
+        anchors = None
+        if name.startswith("two"):  # each replica runs half of every padded chunk
+            anchors = (_replica_anchors(g, paths, queries), _replica_anchors(one, paths, queries))
+        errs[name] = _held_results(name, g.ground(paths, queries), want_res, anchors)
+    errs["ground_image two replicas"] = _held_results(
+        "ground_image two replicas", two.ground_image(paths[0], queries[:5]), one.ground_image(paths[0], queries[:5]))
+    launches = [k.launches for k in kernels]
+    if any(launches):
+        raise AssertionError(f"data-parallel serving launched (K1, K2, K3) {launches}")
+    numbers["c"] = errs
+    log(f"data parallel (c): serving on {dp.devices} and on two replicas == the single-device Grounder, float32 "
+        f"max score differences {errs}; (K1, K2, K3) launches {launches}")
+    log(f"data parallel phase passed in {time.perf_counter() - t_phase:.1f} s on {smi}; numbers "
+        f"{json.dumps(numbers)}")
+    return launches, {"nccl_world1": a["launches"], "gloo_per_rank": [r["launches"] for r in ranks]}
+
+
+def _replica_anchors(g, paths: list, queries: list) -> list[int]:
+    """Each request's argmax anchor as ``g`` computes it chunk by chunk:
+    every replica on its slice of each padded chunk."""
+    from zsgnet_tpu_torch.predict import prep_chunk
+
+    out = []
+    for start in range(0, len(paths), g.bs):
+        chunk = paths[start:start + g.bs]
+        pad = g._pad_to(len(chunk))
+        img, qvec, qlens, _, k = prep_chunk(g.cfg, g.vocab, pad, chunk, queries[start:start + g.bs])
+        rows = pad // len(g.replicas)
+        with torch.inference_mode():
+            for i, (model, _) in enumerate(g.replicas):
+                sl = slice(i * rows, (i + 1) * rows)
+                att = model(torch.from_numpy(img[sl]).to(CUDA), torch.from_numpy(qvec[sl]).to(CUDA),
+                            torch.from_numpy(qlens[sl]), canvas=g.canvas_for(pad))["att_out"]
+                out.extend(att.argmax(dim=-1).tolist())
+        out = out[: start + k]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2007,13 +2347,21 @@ def main() -> int:
         # events, and before phase 10.
         host_launches = check_host_data(Path(tmp), Path(tmp) / "run", smi)
 
+        # Phase 12: data parallel (torchrun NCCL at world 1, two gloo ranks
+        # sharing the card, data-parallel serving), after phase 11.
+        dp_launches, dp_kernel_launches = check_data_parallel(Path(tmp), Path(tmp) / "run", smi)
+
         # Phase 10, last: the serving formats (canvas head, int8, exported
         # artifacts) on phase 6's checkpoint. Its many profiler windows and
         # exports left the profiler without device events for phase 7's
         # bench when it ran before it.
         formats_launches = check_serving_formats(Path(tmp) / "run" / "models" / "smoke", root, smi)
-    for k, n, f, h in zip((k1, k2, k3), serving_launches, formats_launches, host_launches):
+    for k, n, f, h, d in zip((k1, k2, k3), serving_launches, formats_launches, host_launches, dp_launches):
         k["serving_launches"], k["serving_formats_launches"], k["host_data_launches"] = n, f, h
+        k["data_parallel_serving_launches"] = d
+    for i, k in enumerate((k1, k2)):
+        k["data_parallel_launches"] = {"nccl_world1": dp_kernel_launches["nccl_world1"][i],
+                                       "gloo_world2_per_rank": [r[i] for r in dp_kernel_launches["gloo_per_rank"]]}
     log(f"every phase passed in {time.perf_counter() - t_start:.1f} s, the kernels' build included")
 
     print(smi, flush=True)
@@ -2025,4 +2373,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

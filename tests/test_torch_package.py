@@ -194,12 +194,21 @@ def test_variants_are_no_longer_refused(variant):
 
 def test_unported_options_still_raise_with_their_item(tmp_path, monkeypatch):
     """What the port does not run yet names its ROADMAP.md queue 1 item:
-    spatial partitioning 4, data parallel and multi-host 3. The serving
-    formats of item 2 (canvas head, int8, exported artifacts) serve, and
-    item 2's host-data flags (``use_packed_cache``, ``use_tensorboard``,
-    ``normalize_on_device=False``) run."""
+    spatial partitioning 4, in training, serving, the daemon and the data
+    mesh. The serving formats of item 2 (canvas head, int8, exported
+    artifacts) serve, item 2's host-data flags (``use_packed_cache``,
+    ``use_tensorboard``, ``normalize_on_device=False``) run, and item 3's
+    data parallel runs: ``--multi_host=True`` joins the process group that
+    ``torch.distributed.run`` describes (here one gloo rank on the CPU),
+    calls ``main_dist`` inside it on that rank's device and destroys the
+    group at exit."""
+    import socket
+
+    import torch.distributed as dist
+
     from zsgnet_tpu_torch import main as t_main
     from zsgnet_tpu_torch.config import Config
+    from zsgnet_tpu_torch.parallel.mesh import make_mesh
     from zsgnet_tpu_torch.parallel.train_step import check_supported
     from zsgnet_tpu_torch.predict import check_servable
     from zsgnet_tpu_torch.serve import load_server_model
@@ -207,13 +216,28 @@ def test_unported_options_still_raise_with_their_item(tmp_path, monkeypatch):
     cases = [
         (lambda: check_supported(Config(mesh_spatial=2)), "queue 1 item 4"),
         (lambda: check_servable(Config(mesh_spatial=2)), "queue 1 item 4"),
-        (lambda: load_server_model(tmp_path / "ckpt", data_parallel=True, device="cpu"), "queue 1 item 3"),
+        (lambda: make_mesh(Config(mesh_spatial=2), "cpu"), "queue 1 item 4"),
+        (lambda: load_server_model(tmp_path / "ckpt", cfg_overrides={"mesh_spatial": "2"}, data_parallel=True,
+                                   device="cpu"), "queue 1 item 4"),
     ]
     check_servable(Config(head_canvas=True, quant_mode="int8"))
     check_supported(Config(use_packed_cache=True, use_tensorboard=True, normalize_on_device=False))
     for fn, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             fn()
-    monkeypatch.setattr("sys.argv", ["main", "run1", "--multi_host=True", "--device=cpu"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        t_main.main()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                     MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    seen = {}
+
+    def main_dist(uid, device, **kw):
+        seen.update(uid=uid, device=device, backend=dist.get_backend(), world=dist.get_world_size(), kw=kw)
+
+    monkeypatch.setattr(t_main, "main_dist", main_dist)
+    monkeypatch.setattr("sys.argv", ["main", "run1", "--multi_host=True", "--device=cpu", "--bs=4"])
+    t_main.main()
+    assert seen == dict(uid="run1", device=torch.device("cpu"), backend="gloo", world=1, kw={"bs": "4"})
+    assert not dist.is_initialized()

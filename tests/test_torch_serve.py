@@ -9,6 +9,7 @@ import base64
 import json
 import os
 import queue
+import shutil
 import signal
 import subprocess
 import sys
@@ -303,14 +304,23 @@ def test_port_daemon_matches_jax_daemon(server):
 
 
 def test_load_server_model_refuses_unported(server, tmp_path):
-    """Data parallel still names its ROADMAP item; an artifact directory
-    that is not a torch.export artifact (the JAX package's have no
-    ``format``) is refused by the artifact loader."""
+    """Spatial partitioning still names its ROADMAP item (queue 1 item 4);
+    an artifact directory that is not a torch.export artifact (the JAX
+    package's have no ``format``) is refused by the artifact loader; and
+    ``data_parallel=True`` serves a checkpoint on every local device of the
+    requested type (the CPU's one replica here), answering as the plain
+    Grounder does."""
+    g, _, img_path, _ = server
     (tmp_path / "export.json").write_text(json.dumps({"version": 1, "batch_size": 2, "platforms": ["cpu"]}))
     with pytest.raises(ValueError, match="not a torch.export artifact"):
         load_server_model(tmp_path, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        load_server_model(tmp_path / "ckpt", data_parallel=True, device="cpu")
+    d = _write_checkpoint(g, tmp_path / "ckpt")
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        load_server_model(d, cfg_overrides={"mesh_spatial": 2}, device="cpu")
+    dp = load_server_model(d, batch_size=2, data_parallel=True, device="cpu")
+    assert dp.devices == [torch.device("cpu")]
+    assert dp.ground([img_path] * 2, QUERIES[:2]) == g.ground([img_path] * 2, QUERIES[:2])
+    shutil.rmtree(d)
 
 
 def _write_checkpoint(g: Grounder, d: Path) -> Path:

@@ -7,6 +7,7 @@ checkpoint round trip) are bit-equal: one CPU thread, the same seed and
 batch order."""
 
 import json
+import shutil
 
 import numpy as np
 import pytest
@@ -317,10 +318,17 @@ def test_unported_options_raise(synth_root, tmp_path, key, value):
         Learner("t_unported", None, cfg, device="cpu")
 
 
-def test_command_line_matches_jax(monkeypatch):
+def test_command_line_matches_jax(monkeypatch, synth_root, tmp_path):
     """The same argv parses to the same uid, overrides and multi_host flag
     as the JAX ``main.py``; ``--list_flags`` names the same flags;
-    ``--multi_host=True`` is refused, naming its ROADMAP item."""
+    ``--multi_host=True`` without the ``torch.distributed.run`` environment
+    raises (no single-process fallback), and with it (one gloo rank on the
+    CPU) trains, validates and checkpoints under the data mesh, then
+    destroys the process group."""
+    import socket
+
+    import torch.distributed as dist
+
     from zsgnet_tpu import main as j_main
     from zsgnet_tpu_torch import main as t_main
 
@@ -335,9 +343,26 @@ def test_command_line_matches_jax(monkeypatch):
         j_main.parse_args(["--list_flags"])
     flag_names = lambda text: {ln.split("=")[0].strip() for ln in text.splitlines()[1:]}  # noqa: E731
     assert flag_names(str(t_flags.value)) == flag_names(str(j_flags.value))
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
     monkeypatch.setattr("sys.argv", ["main", "run1", "--multi_host=True", "--device=cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
         t_main.main()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                     MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    argv = [f"--{k}={list(v) if isinstance(v, tuple) else v}" for k, v in TINY.items()]
+    monkeypatch.setattr("sys.argv", ["main", "mh", "--multi_host=True", "--device=cpu", "--epochs=1",
+                                     f"--data_dir={synth_root}", f"--tmp_path={tmp_path}", *argv])
+    t_main.main()
+    assert not dist.is_initialized()
+    rows = [json.loads(x) for x in (tmp_path / "logs" / "mh.jsonl").read_text().splitlines()]
+    assert len(rows) == 1 and rows[0]["step"] == 2 and np.isfinite(rows[0]["val_loss"])
+    assert (tmp_path / "models" / "mh" / "step_2.pt").exists()
+    shutil.rmtree(tmp_path / "models")  # ~0.6 GB of checkpoints
 
 
 def test_main_dist_end_to_end(synth_root, tmp_path):

@@ -1,5 +1,5 @@
 """CSV grounding dataset, batch loader and ``get_data`` — port of
-``zsgnet_tpu/data/dataset.py`` for one device.
+``zsgnet_tpu/data/dataset.py``.
 
 The unified CSV schema (``img_id``, pixel ``x1 y1 x2 y2`` or a JSON
 ``bbox`` column, ``query``, optional ``case``), Pillow-bilinear resize to
@@ -22,7 +22,9 @@ on-disk format). With ``cfg.queries_per_img`` Q > 1 the loaders serve
 ``GroupedDataset`` units of one image and Q phrases, the JAX package's
 units exactly.
 
-Not ported yet: host sharding (data parallel).
+Under data parallelism (``shard_id``, ``num_shards``) every rank walks the
+same global batch sequence and collates only its slice of each global
+batch, as the JAX loader does for its hosts.
 """
 
 from __future__ import annotations
@@ -255,12 +257,17 @@ class BatchLoader:
     * ``start_batch`` makes the next iteration start at that batch, once
       (mid-epoch resume, no decode work for the skipped batches);
     * ``nw`` decode threads keep at most ``nw + prefetch_depth`` batches in
-      flight.
+      flight;
+    * ``batch_size`` is the global batch: with ``num_shards`` > 1 every
+      shard draws the same permutation and collates rows
+      ``[shard_id·bs/n, (shard_id+1)·bs/n)`` of each global batch, with
+      that slice of ``valid``.
     """
 
     def __init__(
         self, ds, batch_size: int, shuffle: bool, seed: int = 0,
         nw: int = 4, drop_last: bool = True, prefetch_depth: int = 2,
+        shard_id: int = 0, num_shards: int = 1,
     ):
         self.ds = ds
         self.bs = int(batch_size)
@@ -269,6 +276,8 @@ class BatchLoader:
         self.nw = max(1, nw)
         self.drop_last = drop_last
         self.prefetch_depth = prefetch_depth
+        self.shard_id = int(shard_id)
+        self.num_shards = int(num_shards)
         self.epoch = 0
         self.start_batch = 0
 
@@ -293,16 +302,25 @@ class BatchLoader:
             batches.append(chunk)
         return batches
 
+    @property
+    def local_bs(self) -> int:
+        """This shard's rows of each global batch."""
+        if self.bs % self.num_shards:
+            raise ValueError(f"global batch size {self.bs} not divisible by {self.num_shards} hosts")
+        return self.bs // self.num_shards
+
     def __len__(self) -> int:
         return len(self._batch_indices())
 
     def _assemble(self, bi: int, batches: list[np.ndarray]) -> dict[str, np.ndarray]:
-        batch = collate([self.ds[int(i)] for i in batches[bi]])
+        lo = self.shard_id * self.local_bs
+        hi = lo + self.local_bs
+        batch = collate([self.ds[int(i)] for i in batches[bi][lo:hi]])
         real = len(self.ds) - (len(batches) - 1) * self.bs
         if not self.drop_last and bi == len(batches) - 1:
-            batch["valid"] = np.arange(self.bs) < real
+            batch["valid"] = (np.arange(self.bs) < real)[lo:hi]
         else:
-            batch["valid"] = np.ones(self.bs, dtype=bool)
+            batch["valid"] = np.ones(hi - lo, dtype=bool)
         return batch
 
     def first_batch(self) -> dict[str, np.ndarray]:
@@ -379,8 +397,10 @@ DATASET_LAYOUT = {
 }
 
 
-def get_data(cfg: Config) -> DataWrap:
-    """Train/val/test loaders and the vocab (reference ``get_data(cfg)``).
+def get_data(cfg: Config, shard_id: int = 0, num_shards: int = 1) -> DataWrap:
+    """Train/val/test loaders and the vocab (reference ``get_data(cfg)``);
+    each loader collates shard ``shard_id`` of ``num_shards`` of every
+    global batch of ``cfg.bs`` (:class:`BatchLoader`).
 
     Expects ``<data_dir>/<CSV dir>/{train,val,<test_split>}.csv`` and the
     image dir of :data:`DATASET_LAYOUT`. The vocab is built from the train
@@ -439,7 +459,7 @@ def get_data(cfg: Config) -> DataWrap:
                 raise ValueError("queries_per_img > 1 needs an img_id column")
         return BatchLoader(
             ds, cfg.bs, shuffle=shuffle, seed=cfg.seed, nw=cfg.nw, drop_last=drop_last,
-            prefetch_depth=cfg.prefetch_depth,
+            prefetch_depth=cfg.prefetch_depth, shard_id=shard_id, num_shards=num_shards,
         )
 
     train_dl = loader("train", shuffle=True, drop_last=True)

@@ -8,6 +8,7 @@ loads in the other with the same ids.
 from __future__ import annotations
 
 import json
+import os
 from collections import Counter
 from pathlib import Path
 from typing import Iterable
@@ -62,8 +63,14 @@ class Vocab:
         return ids + [PAD_ID] * (max_len - length), length
 
     def save(self, path: str | Path) -> None:
-        with open(path, "w") as f:
+        """Written under a temporary name and moved into place, so a reader
+        in another process (a rank of a data-parallel run) never sees a
+        partial file."""
+        path = Path(path)
+        tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
+        with open(tmp, "w") as f:
             json.dump(self.word_to_id, f)
+        os.replace(tmp, path)
 
     @classmethod
     def load(cls, path: str | Path) -> "Vocab":

@@ -29,6 +29,11 @@ cannot trace; the programs encode queries with the masked scan
 The JAX package's artifacts (StableHLO, no ``format`` key) are refused
 here; its loader stops on this layout, finding no ``serving_fn*.stablehlo``.
 
+``ExportedGrounder.load(data_parallel=True)`` serves an artifact on every
+local device of the requested type (or on ``devices``): whole device
+batches go round-robin over the devices, each with its own copy of the
+programs and of the version 3 weights, as the JAX package's loader does.
+
 CLI:
     python -m zsgnet_tpu_torch.export <ckpt_dir> <out_dir> [--batch_size=8]
         [--platforms=cuda,cpu] [--quantize=true] [--bucket_sizes=1,4,8]
@@ -50,6 +55,7 @@ from torch import nn
 
 from zsgnet_tpu_torch.config import Config
 from zsgnet_tpu_torch.data.vocab import Vocab
+from zsgnet_tpu_torch.parallel.mesh import local_devices
 from zsgnet_tpu_torch.predict import (
     Grounder, OpenVocabMixin, encode_queries, is_true, load_image, prep_chunk, read_results, to_device,
 )
@@ -179,11 +185,18 @@ class ExportedGrounder(OpenVocabMixin):
 
     def __init__(self, calls: dict, cfg: Config, vocab: Vocab, batch_size: int, device: torch.device,
                  weights: dict[str, Tensor] | None = None, meta: dict | None = None,
-                 glove_path: str | Path | None = None, mq_calls: dict | None = None):
+                 glove_path: str | Path | None = None, mq_calls: dict | None = None,
+                 devices: list | None = None):
         self.cfg, self.vocab, self.bs, self.device = cfg, vocab, batch_size, device
         self.bucket_sizes = tuple(sorted(calls))
         self._calls, self._mq_calls = calls, mq_calls or {}
         self.weights = weights
+        # Round-robin data parallel: the programs and weights of each device,
+        # made at first use there; how many chunks each device took.
+        self._devices = [torch.device(d) for d in devices] if devices else None
+        self._placed: dict[torch.device, tuple] = {device: (calls, self._mq_calls, weights)}
+        self._rr = 0
+        self.dispatch_counts: dict[torch.device, int] = {}
         meta = meta or {}
         self.oov_slots = int(meta.get("oov_slots", 0)) if weights is not None else 0
         self.glove_path = str(glove_path) if (glove_path and self.oov_slots) else None
@@ -205,9 +218,18 @@ class ExportedGrounder(OpenVocabMixin):
 
     @classmethod
     def load(cls, artifact_dir: str | Path, glove_path: str | Path | None = None,
-             device: str | torch.device = "cuda") -> "ExportedGrounder":
-        """Load the programs exported for ``device``'s type."""
-        device = resolve_device(device)
+             device: str | torch.device = "cuda", data_parallel: bool = False,
+             devices: list | None = None) -> "ExportedGrounder":
+        """Load the programs exported for ``device``'s type. With
+        ``data_parallel`` (every local device of that type) or ``devices``,
+        whole device batches go round-robin over the devices; one device
+        serves as the plain path does."""
+        if devices:
+            devices = [resolve_device(d) for d in devices]
+        elif data_parallel:
+            devices = local_devices(device)
+        device = devices[0] if devices else resolve_device(device)
+        devices = devices if devices and len(devices) > 1 else None
         d = Path(artifact_dir)
         meta = json.loads((d / "export.json").read_text())
         if meta.get("format") != FORMAT:
@@ -234,23 +256,55 @@ class ExportedGrounder(OpenVocabMixin):
                 weights = {k: torch.from_numpy(z[k]).to(device) for k in z.files}
         cfg = Config().replace(**meta["cfg"])
         return cls(calls, cfg, Vocab.load(d / "vocab.json"), meta["batch_size"], device, weights=weights,
-                   meta=meta, glove_path=glove_path, mq_calls=mq_calls)
+                   meta=meta, glove_path=glove_path, mq_calls=mq_calls, devices=devices)
 
     def warmup(self, multiquery: bool = False) -> None:
-        """Run every program once (see ``Grounder.warmup``)."""
+        """Run every program once on every device (see ``Grounder.warmup``)."""
         zero = np.zeros((*self.cfg.resize_img, 3), np.uint8)
+        reps = len(self._devices) if self._devices else 1
         for b in self.bucket_sizes:
-            self.ground([zero] * b, ["<unk>"] * b)
+            for _ in range(reps):
+                self.ground([zero] * b, ["<unk>"] * b)
         if multiquery:
             for b in sorted(self._mq_calls):
-                self.ground_image(zero, ["<unk>"] * b)
+                for _ in range(reps):
+                    self.ground_image(zero, ["<unk>"] * b)
+
+    def _ensure_vocab(self, queries: list[str]) -> None:
+        """As ``OpenVocabMixin._ensure_vocab``; the other devices' weights
+        are placed anew at their next chunk."""
+        n = len(self.vocab)
+        super()._ensure_vocab(queries)
+        if len(self.vocab) != n:
+            self._placed = {self.device: self._placed[self.device]}
+
+    def _next_device(self) -> torch.device:
+        """The device of the next chunk: round-robin under data parallel."""
+        if not self._devices:
+            return self.device
+        dev = self._devices[self._rr % len(self._devices)]
+        self._rr += 1
+        self.dispatch_counts[dev] = self.dispatch_counts.get(dev, 0) + 1
+        return dev
+
+    def _on(self, dev: torch.device) -> tuple:
+        """(calls, multi-query calls, weights) on ``dev``: the loaded
+        programs moved there and the weights copied, once."""
+        if dev not in self._placed:
+            move = lambda calls: {b: copy.deepcopy(f).to(dev) for b, f in calls.items()}  # noqa: E731
+            weights = None if self.weights is None else {k: v.to(dev) for k, v in self.weights.items()}
+            self._placed[dev] = (move(self._calls), move(self._mq_calls), weights)
+        return self._placed[dev]
 
     @torch.no_grad()
-    def _call(self, calls: dict, pad_to: int, img: Tensor, qvec: np.ndarray, qlens: np.ndarray):
-        args = (img, to_device(qvec, self.device), to_device(qlens, self.device))
-        if self.weights is not None:
-            args = (self.weights, *args)
-        return calls[pad_to](*args)
+    def _call(self, mq: bool, pad_to: int, img: np.ndarray, qvec: np.ndarray, qlens: np.ndarray):
+        """One chunk's program on the next device → (boxes, scores) there."""
+        dev = self._next_device()
+        calls, mq_calls, weights = self._on(dev)
+        args = (to_device(img, dev), to_device(qvec, dev), to_device(qlens, dev))
+        if weights is not None:
+            args = (weights, *args)
+        return (mq_calls if mq else calls)[pad_to](*args)
 
     def ground(self, images: list, queries: list[str]) -> list[dict]:
         """As ``Grounder.ground``."""
@@ -264,7 +318,7 @@ class ExportedGrounder(OpenVocabMixin):
             pad_to = next(b for b in self.bucket_sizes if b >= len(chunk))
             imgs, qvec, qlens, sizes, k = prep_chunk(self.cfg, self.vocab, pad_to, chunk,
                                                      queries[start : start + self.bs])
-            boxes, scores = self._call(self._calls, pad_to, to_device(imgs, self.device), qvec, qlens)
+            boxes, scores = self._call(False, pad_to, imgs, qvec, qlens)
             in_flight.append((boxes, scores, sizes, k))
             if len(in_flight) > 2:
                 out.extend(read_results(*in_flight.popleft()))
@@ -281,14 +335,14 @@ class ExportedGrounder(OpenVocabMixin):
             return self.ground([image] * len(queries), queries)
         self._ensure_vocab(queries)
         img, orig_hw = load_image(image, self.cfg.resize_img)
-        img_dev = to_device(img[None].copy(), self.device)
+        img = img[None].copy()
         buckets = sorted(self._mq_calls)
         out: list[dict] = []
         for start in range(0, len(queries), buckets[-1]):
             chunk = queries[start : start + buckets[-1]]
             pad_to = next(b for b in buckets if b >= len(chunk))
             qvec, qlens = encode_queries(self.cfg, self.vocab, pad_to, chunk)
-            boxes, scores = self._call(self._mq_calls, pad_to, img_dev, qvec, qlens)
+            boxes, scores = self._call(True, pad_to, img, qvec, qlens)
             out.extend(read_results(boxes, scores, np.tile(np.asarray(orig_hw, np.float32), (pad_to, 1)), len(chunk)))
         return out
 

@@ -1,14 +1,22 @@
-"""Command-line entry point — port of ``zsgnet_tpu/main.py`` for one GPU.
+"""Command-line entry point — port of ``zsgnet_tpu/main.py``.
 
     python -m zsgnet_tpu_torch.main <uid> --ds_to_use=synthetic --data_dir=data
     python -m zsgnet_tpu_torch.main <uid> --only_val=True --resume=True
     python -m zsgnet_tpu_torch.main <uid> --device=cpu ...   # plain versions, no GPU
 
+Data parallel on N local GPUs, one process each (``cfg.bs`` stays the
+global batch):
+
+    python -m torch.distributed.run --nproc_per_node=N -m zsgnet_tpu_torch.main <uid> --multi_host=True
+
 Every ``--key=value`` flag is a Config override (reference key names and
 aliases accepted, ``--list_flags`` prints them); ``--cfg_file=<path>``
 replaces ``configs/cfg.json`` as the config base. ``--device`` (default
-``cuda``) is where the run goes. ``do_dist=True`` runs on the one device;
-``--multi_host=True`` is not ported yet.
+``cuda``) is where the run goes. ``--multi_host=True`` joins the process
+group that ``torch.distributed.run`` describes (NCCL on ``cuda:LOCAL_RANK``,
+gloo with ``--device=cpu``), where the JAX package calls
+``jax.distributed.initialize``; each rank loads its shard of every global
+batch, rank 0 alone prints and writes, and the group is destroyed at exit.
 """
 
 from __future__ import annotations
@@ -21,9 +29,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from zsgnet_tpu_torch.config import KEY_MAPS, Config, get_default_cfg
 from zsgnet_tpu_torch.data.dataset import get_data
+from zsgnet_tpu_torch.parallel.mesh import init_distributed, is_main_process
 from zsgnet_tpu_torch.train.checkpoint import load_sidecar_cfg
 from zsgnet_tpu_torch.train.learner import Learner
 from zsgnet_tpu_torch.utils.backend import resolve_device
@@ -66,7 +76,9 @@ def main_dist(uid: str, device: str | torch.device = "cuda", **kwargs) -> dict[s
 
     With ``resume=True`` the checkpoint directory's ``cfg.json`` becomes
     the config base and the call's kwargs override it. SIGTERM asks the
-    Learner to checkpoint its position and stop."""
+    Learner to checkpoint its position and stop. With a process group up
+    (``--multi_host``) the loaders hold this rank's shard of each batch and
+    the Learner trains data parallel."""
     device = resolve_device(device)
     cfg_file = kwargs.pop("cfg_file", None)
     cfg = get_default_cfg(cfg_file).replace(uid=uid, **kwargs)
@@ -75,9 +87,11 @@ def main_dist(uid: str, device: str | torch.device = "cuda", **kwargs) -> dict[s
         saved = load_sidecar_cfg(ckpt_root)
         if saved is not None:
             cfg = saved.replace(uid=uid, **kwargs)
-            print(f"resume: config base loaded from {ckpt_root / 'cfg.json'}")
+            if is_main_process():
+                print(f"resume: config base loaded from {ckpt_root / 'cfg.json'}")
     np.random.seed(cfg.seed)
-    learn = Learner(uid, get_data(cfg), cfg, device=device)
+    shard_id, num_shards = (dist.get_rank(), dist.get_world_size()) if dist.is_initialized() else (0, 1)
+    learn = Learner(uid, get_data(cfg, shard_id=shard_id, num_shards=num_shards), cfg, device=device)
     if cfg.only_val:
         metrics = learn.validate()
     elif cfg.only_test:
@@ -93,17 +107,24 @@ def main_dist(uid: str, device: str | torch.device = "cuda", **kwargs) -> dict[s
             if previous is not None:
                 signal.signal(signal.SIGTERM, previous)
         metrics = learn.validate()
-    print({k: round(v, 4) for k, v in metrics.items()})
+    if is_main_process():
+        print({k: round(v, 4) for k, v in metrics.items()})
     return metrics
 
 
 def main() -> None:
     uid, overrides, multi_host, device = parse_args(sys.argv[1:])
-    if multi_host:
-        raise NotImplementedError(
-            "--multi_host is not ported yet: see ROADMAP.md queue 1 item 3 (data parallel)"
-        )
-    main_dist(uid, device=device, **overrides)
+    if not multi_host:
+        main_dist(uid, device=device, **overrides)
+        return
+    mesh = init_distributed(device)
+    if mesh.rank == 0:
+        print(f"process group: {mesh.backend}, {mesh.world_size} rank(s), rank 0 on {mesh.device}",
+              flush=True)
+    try:
+        main_dist(uid, device=mesh.device, **overrides)
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

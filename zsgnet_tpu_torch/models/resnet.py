@@ -16,6 +16,11 @@ applied once per step, as flax's side-effect-free remat does.
 ``quant_mode`` builds every convolution through ``models.quant.conv_for``
 (the JAX package quantizes the same ones: the stem, each bottleneck's three
 and its downsample).
+
+``ResNet50(sync_bn=True)`` (a model built with ``cfg.bn_sync_axis`` set, as
+the Learner does under a data mesh) takes its training-mode BatchNorm
+moments over every rank of the process group, as the JAX package's
+BatchNorm with ``axis_name`` does under ``shard_map``.
 """
 
 from __future__ import annotations
@@ -24,13 +29,69 @@ import contextlib
 from typing import Iterator
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from zsgnet_tpu_torch.models.quant import conv_for
+from zsgnet_tpu_torch.parallel.mesh import all_reduce_
 
 Tensor = torch.Tensor
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Training-mode batch normalization with moments over every rank of
+    ``group``, through ``all_reduce`` alone: the forward sums the
+    per-channel values and the count, then the squares centred on the
+    global mean (flax's exact two-pass variance); the backward sums Σdy and
+    Σdy·x̂. The weight and bias gradients stay this rank's partials, which
+    the train step sums over the ranks with every other gradient. Computes
+    in float32 and returns ``x``'s dtype; → (y, mean, biased variance)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        x32 = x.float()
+        dims = (0, 2, 3)
+        c = x.shape[1]
+        stats = torch.cat([x32.sum(dims), x32.new_full((1,), x.numel() // c)])
+        all_reduce_(stats, group)
+        count = stats[c]
+        mean = stats[:c] / count
+        xc = x32 - mean[None, :, None, None]
+        sq = xc.square().sum(dims)
+        all_reduce_(sq, group)
+        var = sq / count
+        invstd = torch.rsqrt(var + eps)
+        y = xc * invstd[None, :, None, None] * weight.float()[None, :, None, None] + bias.float()[None, :, None, None]
+        ctx.save_for_backward(x, weight, mean, invstd, count)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, count = ctx.saved_tensors
+        dims = (0, 2, 3)
+        c = x.shape[1]
+        dy32 = dy.float()
+        xhat = (x.float() - mean[None, :, None, None]) * invstd[None, :, None, None]
+        local = torch.cat([dy32.sum(dims), (dy32 * xhat).sum(dims)])
+        dbias, dweight = local[:c].clone(), local[c:].clone()
+        all_reduce_(local, ctx.group)
+        mean_dy, mean_dy_xhat = local[:c] / count, local[c:] / count
+        dx = (dy32 - mean_dy[None, :, None, None] - xhat * mean_dy_xhat[None, :, None, None]) * (
+            invstd * weight.float())[None, :, None, None]
+        return dx.to(x.dtype), dweight.to(weight.dtype), dbias.to(weight.dtype), None, None
+
+
+def _sync_group():
+    """The process group to take BatchNorm moments over: the default group
+    when more than one rank is up, else None (one rank's moments are the
+    global ones)."""
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        return dist.group.WORLD
+    return None
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -48,15 +109,34 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``fast``/``shifted16`` differ from it only by rounding in the JAX
     package.
 
+    With ``sync`` set and more than one rank in the process group, the
+    training-mode moments are global (:class:`_SyncBatchNorm`) and the
+    running statistics move with them, so they stay equal on every rank;
+    with one rank the forward is the plain one above and issues no
+    collective.
+
     While ``frozen_stats`` is set (the recomputation under remat) the
     training-mode forward normalizes with the batch's moments as usual and
     updates nothing."""
 
     frozen_stats = False
 
+    def __init__(self, num_features: int, sync: bool = False):
+        super().__init__(num_features)
+        self.sync = sync
+
     def forward(self, x: Tensor) -> Tensor:
         if not self.training:
             return super().forward(x)
+        group = _sync_group() if self.sync else None
+        if group is not None:
+            y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias, self.eps, group)
+            if not self.frozen_stats:
+                self.num_batches_tracked.add_(1)
+                with torch.no_grad():
+                    self.running_mean.lerp_(mean, self.momentum)
+                    self.running_var.lerp_(var, self.momentum)
+            return y
         if self.frozen_stats:
             return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(), self.weight,
                                 self.bias, True, self.momentum, self.eps)
@@ -88,21 +168,22 @@ def frozen_bn_stats(module: nn.Module) -> Iterator[None]:
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, in_ch: int, width: int, stride: int = 1, quant_mode: str = "off"):
+    def __init__(self, in_ch: int, width: int, stride: int = 1, quant_mode: str = "off",
+                 sync_bn: bool = False):
         super().__init__()
         out_ch = width * self.expansion
         self.conv1 = conv_for(quant_mode, in_ch, width, 1, bias=False)
-        self.bn1 = BatchNorm2d(width)
+        self.bn1 = BatchNorm2d(width, sync_bn)
         self.conv2 = conv_for(quant_mode, width, width, 3, stride=stride, padding=1, bias=False)
-        self.bn2 = BatchNorm2d(width)
+        self.bn2 = BatchNorm2d(width, sync_bn)
         self.conv3 = conv_for(quant_mode, width, out_ch, 1, bias=False)
-        self.bn3 = BatchNorm2d(out_ch)
+        self.bn3 = BatchNorm2d(out_ch, sync_bn)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = None
         if stride != 1 or in_ch != out_ch:
             self.downsample = nn.Sequential(
                 conv_for(quant_mode, in_ch, out_ch, 1, stride=stride, bias=False),
-                BatchNorm2d(out_ch),
+                BatchNorm2d(out_ch, sync_bn),
             )
 
     def forward(self, x: Tensor) -> Tensor:
@@ -116,11 +197,11 @@ class Bottleneck(nn.Module):
 class ResNet50(nn.Module):
     """(B, 3, H, W) normalized image → (C3, C4, C5)."""
 
-    def __init__(self, remat: bool = False, quant_mode: str = "off"):
+    def __init__(self, remat: bool = False, quant_mode: str = "off", sync_bn: bool = False):
         super().__init__()
         self.remat = remat
         self.conv1 = conv_for(quant_mode, 3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64, sync_bn)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         in_ch = 64
@@ -128,7 +209,7 @@ class ResNet50(nn.Module):
             blocks = []
             for block_i in range(n_blocks):
                 stride = 2 if (block_i == 0 and stage_i > 0) else 1
-                blocks.append(Bottleneck(in_ch, width, stride, quant_mode))
+                blocks.append(Bottleneck(in_ch, width, stride, quant_mode, sync_bn))
                 in_ch = width * Bottleneck.expansion
             setattr(self, f"layer{stage_i + 1}", nn.Sequential(*blocks))
 

@@ -38,7 +38,9 @@ adds its per-image conv0 term to the per-pair query term instead; here
 conv0's visual channels are paid per pair.
 
 ``cfg.remat_backbone`` recomputes ResNet-50's bottlenecks in the backward
-pass (``models/resnet.py``).
+pass (``models/resnet.py``). ``cfg.bn_sync_axis`` (set by the Learner under
+a data mesh) takes ResNet-50's training-mode BatchNorm moments over every
+rank of the process group.
 
 ``cfg.compute_dtype == "bfloat16"`` runs the backbone and heads under
 ``torch.autocast`` on CUDA; the query encoder and the outputs stay float32.
@@ -135,7 +137,8 @@ class ZSGNet(nn.Module):
         qm = cfg.quant_mode
         if cfg.mdl_to_use == "retina":
             self.backbone = nn.ModuleDict({
-                "encoder": ResNet50(remat=cfg.remat_backbone, quant_mode=qm),
+                "encoder": ResNet50(remat=cfg.remat_backbone, quant_mode=qm,
+                                    sync_bn=bool(cfg.bn_sync_axis)),
                 "fpn": FPN(cfg.fpn_ch, quant_mode=qm),
             })
             channels = (cfg.fpn_ch,) * 5

@@ -41,6 +41,7 @@ import torch
 
 from zsgnet_tpu_torch.ops import boxes as box_ops
 from zsgnet_tpu_torch.ops.losses import smooth_l1
+from zsgnet_tpu_torch.parallel.mesh import all_reduce_sum
 
 Tensor = torch.Tensor
 
@@ -337,11 +338,16 @@ def zsg_loss_fused(
     att_logits: Tensor, bbx_reg: Tensor, anchors: tuple[Tensor, Tensor], gt_tlbr: Tensor, *,
     lamb_reg: float = 1.0, match_thr: float = 0.5, neg_thr: float = 0.4,
     alpha: float = 0.25, gamma: float = 2.0, sample_weight: Tensor | None = None,
+    group=None,
 ) -> dict[str, Tensor]:
     """Drop-in for ``ops.losses.zsg_loss`` on the focal, multi-positive path.
 
     anchors: ``pack_anchors(...)``. Same return dict and normalization:
     both sums divided by the weighted positive count clamped to ≥ 1.
+    With ``group`` (a process group, the JAX ``axis_name``) the count is
+    summed over its ranks between K1 and the division, so each rank's
+    values are partials of the global loss; K2 gets 1/count through its
+    upstream gradient. ``num_pos`` stays the local count.
     """
     b = att_logits.shape[0]
     w = (
@@ -353,7 +359,10 @@ def zsg_loss_fused(
         att_logits.float().contiguous(), bbx_reg.float().contiguous(), *anchors,
         gt_tlbr, w, match_thr, neg_thr, alpha, gamma,
     )
-    num_pos = num_pos_local.clamp(min=1.0)
+    if group is not None:
+        num_pos = all_reduce_sum(num_pos_local, group).clamp(min=1.0)
+    else:
+        num_pos = num_pos_local.clamp(min=1.0)
     cls_ls = cls_sum / num_pos
     box_ls = box_sum / num_pos
     return {

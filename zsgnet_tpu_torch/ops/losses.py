@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from zsgnet_tpu_torch.parallel.mesh import all_reduce_
+
 Tensor = torch.Tensor
 
 
@@ -54,6 +56,7 @@ def zsg_loss(
     use_focal: bool = True,
     use_softmax: bool = False,
     sample_weight: Tensor | None = None,
+    group=None,
 ) -> dict[str, Tensor]:
     """Total grounding loss over one batch.
 
@@ -67,6 +70,12 @@ def zsg_loss(
     ``sample_weight`` (B,) scales every term and the positive count; a 0
     removes the sample (eval tail pads). Returns total, cls_ls, box_ls and
     num_pos (the unclamped weighted count).
+
+    ``group`` (a process group, as the JAX ``axis_name``): this rank holds
+    one shard of the batch, and the positive count and the batch size that
+    normalize it are summed over the group's ranks. The values are then
+    this shard's partials of the global loss, which sum over the ranks to
+    the loss of the whole batch; ``num_pos`` stays the local count.
     """
     pos = (labels == 1).float()
     valid = (labels != -1).float()
@@ -79,7 +88,11 @@ def zsg_loss(
         pos_w = pos
         global_bs = torch.tensor(float(att_logits.shape[0]), device=att_logits.device)
     num_pos_local = pos_w.sum()
-    num_pos = num_pos_local.clamp(min=1.0)
+    if group is not None:
+        both = all_reduce_(torch.stack([num_pos_local, global_bs.float()]).detach(), group)
+        num_pos, global_bs = both[0].clamp(min=1.0), both[1]
+    else:
+        num_pos = num_pos_local.clamp(min=1.0)
 
     if use_softmax:
         logits32 = att_logits.float()

@@ -1,5 +1,5 @@
 """Train and evaluation steps — port of ``zsgnet_tpu/parallel/train_step.py``
-for one device, no mesh.
+on one device, or on one rank of a data mesh (``parallel.mesh``).
 
 ``make_compute_loss`` is the loss-variant dispatch both steps share: the
 focal, multi-positive, non-softmax loss goes through the fused match +
@@ -21,8 +21,22 @@ pair-major; both steps flatten the annotations the same way and weight each
 pair's loss by ``pair_valid`` (times ``valid`` in evaluation), so a
 wrap-repeated pair counts zero times.
 
-Not ported yet: data parallelism (``mesh``, sync-BN) and spatial
-partitioning.
+Under a :class:`~zsgnet_tpu_torch.parallel.mesh.DataMesh` (``mesh=``) each
+rank runs the step on its slice of the global batch, as the JAX step does
+under ``shard_map``: the losses are normalized by the global positive count
+(summed between the loss sums and the division), so each rank's loss and
+gradients are partials of the global batch's; after the backward the
+gradients and the loss dict are summed over the ranks (``num_pos`` becomes
+the global count), and clipping and the optimizer act on the sums.
+BatchNorm moments are synchronized in the model (``cfg.bn_sync_axis``), so
+the running statistics stay equal on every rank. The gradients go through
+one bucketed ``all_reduce`` after the backward, not through
+``DistributedDataParallel``: DDP averages where this step must sum, and
+its buffer broadcast and bucket hooks would only repeat what the
+synchronized BatchNorm and the explicit sum already give. The evaluation
+step sums its loss over the ranks. Without a mesh no collective is issued.
+
+Not ported yet: spatial partitioning (``mesh_spatial``).
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ from zsgnet_tpu_torch.config import Config
 from zsgnet_tpu_torch.ops import anchors as anchor_ops
 from zsgnet_tpu_torch.ops import losses
 from zsgnet_tpu_torch.ops.cuda.fused_loss import pack_anchors, zsg_loss_fused
+from zsgnet_tpu_torch.parallel.mesh import DataMesh, all_reduce_sum, all_reduce_sum_
 from zsgnet_tpu_torch.train.evaluator import eval_batch
 from zsgnet_tpu_torch.utils.backend import resolve_device
 
@@ -54,10 +69,12 @@ def check_supported(cfg: Config) -> None:
 
 
 def make_compute_loss(
-    cfg: Config, anchors_cthw: np.ndarray, device: str | torch.device = "cuda"
+    cfg: Config, anchors_cthw: np.ndarray, device: str | torch.device = "cuda", group=None,
 ) -> Callable[..., dict[str, Tensor]]:
     """→ ``compute_loss(out, annot, sample_weight=None) -> loss dict``.
-    ``sample_weight`` (B,) scales every loss term and the positive count."""
+    ``sample_weight`` (B,) scales every loss term and the positive count.
+    With ``group`` the values are this rank's partials of the loss over
+    every rank's batch (the JAX ``axis``)."""
     dev = resolve_device(device)
     anchors = torch.as_tensor(anchors_cthw, dtype=torch.float32).to(dev)
     use_fused = cfg.use_focal and cfg.use_multi and not cfg.use_softmax
@@ -69,7 +86,7 @@ def make_compute_loss(
                 out["att_out"], out["bbx_out"], packed, annot,
                 lamb_reg=cfg.lamb_reg, match_thr=cfg.matching_threshold,
                 neg_thr=cfg.neg_threshold, alpha=cfg.focal_alpha,
-                gamma=cfg.focal_gamma, sample_weight=sample_weight,
+                gamma=cfg.focal_gamma, sample_weight=sample_weight, group=group,
             )
         labels, reg_t = anchor_ops.match_and_encode(
             anchors, annot, cfg.matching_threshold, cfg.neg_threshold, use_multi=cfg.use_multi
@@ -78,7 +95,7 @@ def make_compute_loss(
             out["att_out"], out["bbx_out"], labels, reg_t,
             lamb_reg=cfg.lamb_reg, alpha=cfg.focal_alpha, gamma=cfg.focal_gamma,
             use_focal=cfg.use_focal, use_softmax=cfg.use_softmax,
-            sample_weight=sample_weight,
+            sample_weight=sample_weight, group=group,
         )
 
     return compute_loss
@@ -202,15 +219,25 @@ def create_train_state(cfg: Config, model: torch.nn.Module) -> TrainState:
     return TrainState(model=model, optimizer=make_optimizer(cfg, params), ema=ema)
 
 
+def _sum_losses(ls: dict[str, Tensor], group) -> dict[str, Tensor]:
+    """The loss dict summed over the group's ranks, in one collective."""
+    keys = list(ls)
+    summed = all_reduce_sum(torch.stack([ls[k].detach().float() for k in keys]), group)
+    return dict(zip(keys, summed.unbind()))
+
+
 def make_train_step(
-    cfg: Config, anchors_cthw: np.ndarray, device: str | torch.device = "cuda"
+    cfg: Config, anchors_cthw: np.ndarray, device: str | torch.device = "cuda",
+    mesh: DataMesh | None = None,
 ) -> Callable[[TrainState, dict], tuple[TrainState, dict[str, Tensor]]]:
     """→ ``step(state, batch) -> (state, loss dict)``; ``state`` is updated
     in place. ``batch`` is a host batch (numpy) with at least
-    :func:`train_batch_keys`."""
+    :func:`train_batch_keys`: under ``mesh``, this rank's slice of the
+    global batch, and the returned losses are the global batch's."""
     dev = resolve_device(device)
     check_supported(cfg)
-    compute_loss = make_compute_loss(cfg, anchors_cthw, dev)
+    group = mesh.group if mesh is not None else None
+    compute_loss = make_compute_loss(cfg, anchors_cthw, dev, group)
     k = int(cfg.grad_accum)
     scheduled = cfg.lr_schedule != "const" or cfg.warmup_steps > 0
     if scheduled:
@@ -221,13 +248,19 @@ def make_train_step(
         annot, w = pairs_and_weights(b)
         return compute_loss(out, annot, sample_weight=w)
 
+    def clamped_global_pos(num_pos_local: Tensor) -> Tensor:
+        n = all_reduce_sum(num_pos_local, group) if group is not None else num_pos_local.detach()
+        return n.clamp(min=1.0)
+
     def grads_accumulated(model: torch.nn.Module, b: dict[str, Tensor]) -> dict[str, Tensor]:
         """Micro-batched backward with exact full-batch gradients. Every loss
         is normalized by the clamped positive count, a function of the
         annotations alone: each micro-batch back-propagates its loss times
         its clamped count, and the sums are divided by the clamped total
         count (a positive-free micro-batch adds its negative-anchor loss
-        undivided, as in the full batch). BatchNorm moments are per
+        undivided, as in the full batch). Under a mesh both counts are
+        global (JAX ``_clamped_global_pos``), and micro-batch i is every
+        rank's i-th local micro-batch. BatchNorm moments are per
         micro-batch; running statistics chain through them."""
         bsz = b["img"].shape[0]
         if bsz % k:
@@ -236,12 +269,12 @@ def make_train_step(
         sums: dict[str, Tensor] = {}
         for i in range(k):
             ls = forward_loss(model, {key: v[i * m : (i + 1) * m] for key, v in b.items()})
-            w = ls["num_pos"].detach().clamp(min=1.0)
+            w = clamped_global_pos(ls["num_pos"])
             (ls["total"] * w).backward()
             for key, v in ls.items():
                 v = v.detach() if key == "num_pos" else v.detach() * w
                 sums[key] = sums[key] + v if key in sums else v
-        n_total = sums["num_pos"].clamp(min=1.0)
+        n_total = clamped_global_pos(sums["num_pos"])
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         torch._foreach_div_(grads, n_total)
         return {key: v if key == "num_pos" else v / n_total for key, v in sums.items()}
@@ -257,6 +290,11 @@ def make_train_step(
             ls = forward_loss(model, b)
             ls["total"].backward()
             ls = {key: v.detach() for key, v in ls.items()}
+        if group is not None:
+            # Each rank's gradients and losses are partials of the global
+            # batch's: their sums are the global values exactly.
+            all_reduce_sum_([p.grad for p in model.parameters() if p.grad is not None], group)
+            ls = _sum_losses(ls, group)
         if cfg.grad_clip > 0:
             clip_by_global_norm_(
                 [p.grad for p in model.parameters() if p.grad is not None], cfg.grad_clip
@@ -264,8 +302,8 @@ def make_train_step(
         lr = cfg.lr * state.lr_scale
         if scheduled:
             lr *= lr_schedule_scale(cfg, state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
+        for pg in state.optimizer.param_groups:
+            pg["lr"] = lr
         state.optimizer.step()
         if state.ema is not None:
             # d = min(decay, (1+t)/(10+t)) with t the steps before this
@@ -284,17 +322,21 @@ def make_train_step(
 
 
 def make_eval_step(
-    cfg: Config, anchors_cthw: np.ndarray, device: str | torch.device = "cuda"
+    cfg: Config, anchors_cthw: np.ndarray, device: str | torch.device = "cuda",
+    mesh: DataMesh | None = None,
 ) -> Callable[[torch.nn.Module, dict], dict[str, Tensor]]:
     """→ ``run(model, batch) -> per-sample metrics`` (``iou``, ``correct``,
     ``pred_box``, ``max_pos``) plus ``loss``, the batch's validation loss
     broadcast per sample. The model runs in eval mode (running BatchNorm
     statistics). A ``valid`` mask in the batch weights the loss, so
     wrap-padded tail rows count zero times; a grouped batch's metrics are
-    per pair (B·Q rows), its loss weighted by ``valid`` times ``pair_valid``."""
+    per pair (B·Q rows), its loss weighted by ``valid`` times ``pair_valid``.
+    Under ``mesh`` the metrics are this rank's rows and the loss is the
+    global batch's (summed over the ranks)."""
     dev = resolve_device(device)
     anchors = torch.as_tensor(anchors_cthw, dtype=torch.float32).to(dev)
-    compute_loss = make_compute_loss(cfg, anchors_cthw, dev)
+    group = mesh.group if mesh is not None else None
+    compute_loss = make_compute_loss(cfg, anchors_cthw, dev, group)
 
     @torch.inference_mode()
     def run(model: torch.nn.Module, batch: dict) -> dict[str, Tensor]:
@@ -303,8 +345,10 @@ def make_eval_step(
         out = model(b["img"], b["qvec"], b["qlens"])
         annot, w = pairs_and_weights(b, b.get("valid"))
         ev = eval_batch(out["att_out"], out["bbx_out"], anchors, annot, cfg.acc_iou_threshold)
-        ls = compute_loss(out, annot, sample_weight=w)
-        ev["loss"] = ls["total"].expand_as(ev["iou"])
+        total = compute_loss(out, annot, sample_weight=w)["total"]
+        if group is not None:
+            total = all_reduce_sum(total, group)
+        ev["loss"] = total.expand_as(ev["iou"])
         return ev
 
     return run

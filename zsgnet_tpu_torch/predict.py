@@ -23,11 +23,16 @@ box columns are ignored) to JSONL predictions:
 ``Grounder``; every other ``--key=val`` overrides the checkpoint's
 ``cfg.json``.
 
+``Grounder(devices=[...])`` serves data parallel, the JAX ``Grounder`` on a
+1-D mesh: one replica of the weights on each listed device, every device
+batch split into equal slices over the replicas.
+
 Not ported yet (it raises, naming its ROADMAP item): ``mesh_spatial``.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import sys
 import zlib
@@ -217,15 +222,23 @@ class Grounder(OpenVocabMixin):
     ``ground`` keeps two chunks in flight: inputs go to the device from
     pinned memory without blocking, outputs stay there, and a chunk is read
     back only after the next two are queued, so the host decodes the next
-    chunk's images while the device works."""
+    chunk's images while the device works.
+
+    ``devices`` (in place of ``device``) serves data parallel: one replica of
+    the weights on each device (a device may repeat), each device batch
+    split into equal slices over them in order. ``batch_size`` and every
+    bucket must divide over the replicas; ``ground_image`` takes the
+    per-pair path, since one image does not split."""
 
     def __init__(
         self, cfg: Config, vocab: Vocab, state_dict: dict[str, Tensor],
         batch_size: int = 8, bucket_sizes: tuple[int, ...] | None = None,
         oov_slots: int = 0, glove_path: str | Path | None = None,
         device: str | torch.device = "cuda", quantize: bool = False, quant_percentile: float = 0.999,
+        devices: list | None = None,
     ):
-        self.device = resolve_device(device)
+        self.devices = [resolve_device(d) for d in devices] if devices else [resolve_device(device)]
+        self.device = self.devices[0]
         check_servable(cfg)
         if batch_size <= LATENCY_BATCH_MAX and cfg.use_same_atb:
             cfg = cfg.replace(head_canvas=True)
@@ -241,8 +254,13 @@ class Grounder(OpenVocabMixin):
         self.cfg = cfg
         self.vocab = vocab
         self.bs = int(batch_size)
+        n_shard = len(self.devices)
+        if self.bs % n_shard:
+            raise ValueError(f"batch_size={batch_size} must divide over the {n_shard}-device mesh")
         if bucket_sizes is None:
-            bucket_sizes = tuple(b for b in BUCKETS if b < self.bs)
+            bucket_sizes = tuple(b for b in BUCKETS if b < self.bs and b % n_shard == 0)
+        elif any(b % n_shard for b in bucket_sizes):
+            raise ValueError(f"bucket_sizes {bucket_sizes} must all divide over the {n_shard}-device mesh")
         # bucket_sizes=(batch_size,) pads every chunk to the full batch.
         self.bucket_sizes = tuple(sorted({*bucket_sizes, self.bs}))
         # A float Grounder above the latency sizes serves its small buckets
@@ -270,6 +288,24 @@ class Grounder(OpenVocabMixin):
         self.model.load_state_dict(state_dict)
         self.model.to(self.device).eval()
         self.anchors = torch.as_tensor(anchor_pyramid_for(cfg)).to(self.device)
+        self._replicate()
+
+    def _replicate(self) -> None:
+        """The replicas of the other devices as copies of ``model`` (and
+        their anchors); none for one device."""
+        self.replicas = [(self.model, self.anchors)] + [
+            (copy.deepcopy(self.model).to(d), self.anchors.to(d)) for d in self.devices[1:]
+        ]
+
+    def _ensure_vocab(self, queries: list[str]) -> None:
+        """As ``OpenVocabMixin._ensure_vocab``, with the new rows copied into
+        every replica's embedding table."""
+        n = len(self.vocab)
+        super()._ensure_vocab(queries)
+        if len(self.vocab) != n and len(self.replicas) > 1:
+            with torch.no_grad():
+                for m, _ in self.replicas[1:]:
+                    m.embedding.weight.copy_(self.embedding_table)
 
     @property
     def embedding_table(self) -> Tensor:
@@ -287,7 +323,7 @@ class Grounder(OpenVocabMixin):
         cfg: Config | None = None, batch_size: int = 8, cfg_overrides: dict | None = None,
         oov_slots: int = 0, glove_path: str | Path | None = None,
         device: str | torch.device = "cuda", quantize: bool = False,
-        bucket_sizes: tuple[int, ...] | None = None,
+        bucket_sizes: tuple[int, ...] | None = None, devices: list | None = None,
     ) -> "Grounder":
         """Serve the latest step of a checkpoint directory that the port's
         Learner (or ``convert``) wrote: the run's model directory or its
@@ -296,7 +332,8 @@ class Grounder(OpenVocabMixin):
         sidecar, ``cfg_overrides`` patches keys on top. A checkpoint with
         ``ema`` (``cfg.ema_decay > 0``) serves the EMA parameters with the
         saved BatchNorm statistics."""
-        device = resolve_device(device)
+        if not devices:
+            device = resolve_device(device)
         if cfg is None:
             cfg = load_sidecar_cfg(ckpt_dir)
             if cfg is None:
@@ -312,14 +349,15 @@ class Grounder(OpenVocabMixin):
         payload = CheckpointManager(ckpt_dir).restore()
         state_dict = {**payload["model"], **payload.get("ema", {})}
         return cls(cfg, vocab, state_dict, batch_size, bucket_sizes, oov_slots=oov_slots,
-                   glove_path=glove_path, device=device, quantize=quantize)
+                   glove_path=glove_path, device=device, quantize=quantize, devices=devices)
 
     def warmup(self, multiquery: bool = False) -> None:
         """Run every shape bucket once now (and, with ``multiquery``, every
         ``ground_image`` bucket), so that no request pays a first call's
         set-up. Queries are ``<unk>``, which takes no OOV slot. An int8
         Grounder that is not calibrated yet skips: zeros would calibrate
-        garbage scales."""
+        garbage scales. A data-parallel Grounder has no ``ground_image``
+        buckets of its own (it grounds per pair)."""
         if self.quantize and not self.calibrated:
             print("Grounder.warmup: skipped — int8 serving calibrates on the first real batch; "
                   "warm up after .calibrate()/.ground()")
@@ -327,7 +365,7 @@ class Grounder(OpenVocabMixin):
         zero = np.zeros((*self.cfg.resize_img, 3), np.uint8)
         for b in self.bucket_sizes:
             self.ground([zero] * b, ["<unk>"] * b)
-        if multiquery:
+        if multiquery and len(self.replicas) == 1:
             for b in self.bucket_sizes:
                 self.ground_image(zero, ["<unk>"] * b)
 
@@ -340,6 +378,8 @@ class Grounder(OpenVocabMixin):
             self.model(self._to_device(img), self._to_device(qvec), torch.from_numpy(qlens))
         finally:
             set_quant_mode(self.model, "int8")
+        if len(self.replicas) > 1:
+            self._replicate()  # the scales are new buffers of the model
 
     def _to_device(self, a: np.ndarray) -> Tensor:
         return to_device(a, self.device)
@@ -352,11 +392,23 @@ class Grounder(OpenVocabMixin):
 
     @torch.inference_mode()
     def _infer(self, img: Tensor, qvec: Tensor, qlens: Tensor) -> tuple[Tensor, Tensor]:
-        """→ (boxes (B, 4), scores (B,)), left on the device."""
-        out = self.model(img, qvec, qlens, canvas=self.canvas_for(qvec.shape[0]))
-        att = out["att_out"]
-        box = decode_best_box(att, out["bbx_out"], self.anchors)
-        return box, torch.sigmoid(att.max(dim=-1).values)
+        """→ (boxes (B, 4), scores (B,)), left on the device: with replicas,
+        each runs its slice of the rows on its device, and the slices come
+        back to the first device in order."""
+        canvas = self.canvas_for(qvec.shape[0])
+        n = len(self.replicas)
+        rows = qvec.shape[0] // n
+        boxes, scores = [], []
+        for i, (model, anchors) in enumerate(self.replicas):
+            sl = slice(i * rows, (i + 1) * rows)
+            dev = anchors.device
+            out = model(img[sl].to(dev), qvec[sl].to(dev), qlens[sl], canvas=canvas)
+            att = out["att_out"]
+            boxes.append(decode_best_box(att, out["bbx_out"], anchors).to(self.device))
+            scores.append(torch.sigmoid(att.max(dim=-1).values).to(self.device))
+        if n == 1:
+            return boxes[0], scores[0]
+        return torch.cat(boxes), torch.cat(scores)
 
     def _pad_to(self, k: int) -> int:
         return next(b for b in self.bucket_sizes if b >= k)
@@ -391,9 +443,12 @@ class Grounder(OpenVocabMixin):
         """Ground N queries against one image: one decode, and per chunk of
         queries (padded over the same buckets as ``ground``) one backbone
         pass at image batch 1 whose features the model expands to the
-        queries. Equal to ``ground([image] * N, queries)``."""
+        queries. Equal to ``ground([image] * N, queries)``, which a
+        data-parallel Grounder runs instead."""
         if not queries:
             return []
+        if len(self.replicas) > 1:
+            return self.ground([image] * len(queries), queries)
         self._ensure_vocab(queries)
         img, orig_hw = load_image(image, self.cfg.resize_img)
         img_dev = self._to_device(img[None].copy())

@@ -30,7 +30,7 @@ CLI:
     python -m zsgnet_tpu_torch.serve <ckpt_or_artifact_dir> [--port=8500]
         [--batch_size=8] [--window_ms=5] [--max_queue=N] [--host=127.0.0.1]
         [--warmup=false] [--oov_slots=N] [--glove=<file>] [--device=cuda]
-        [--quantize=true] [--key=val ...]
+        [--quantize=true] [--data_parallel=true] [--key=val ...]
 
 A directory holding ``export.json`` is served through
 ``export.ExportedGrounder`` (its batch size and buckets are the
@@ -39,8 +39,12 @@ artifact's), any other as a checkpoint through ``Grounder.from_checkpoint``.
 the daemon takes requests. SIGTERM stops accepting and answers the
 requests already accepted before the process exits.
 
-Not ported yet (they raise, naming their ROADMAP item): ``--data_parallel``
-and ``--mesh_spatial``.
+``--data_parallel=true`` serves on every local device of the requested
+type: a checkpoint through a ``Grounder`` with one replica per device, each
+device batch split over them; an artifact with whole device batches
+round-robin over the devices.
+
+Not ported yet (it raises, naming its ROADMAP item): ``--mesh_spatial``.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ import torch
 
 from zsgnet_tpu_torch.data.dataset import load_image_bytes_u8
 from zsgnet_tpu_torch.export import ExportedGrounder
+from zsgnet_tpu_torch.parallel.mesh import local_devices
 from zsgnet_tpu_torch.predict import Grounder, is_true, unported
 from zsgnet_tpu_torch.utils.backend import resolve_device
 
@@ -273,15 +278,18 @@ def load_server_model(
     ``ground``, ``ground_image``, ``warmup``, ``cfg``, ``vocab``, ``bs`` and
     ``bucket_sizes``. An artifact fixes its batch size, buckets, format and
     OOV capacity at export: ``cfg_overrides``, ``quantize`` and an
-    ``oov_slots`` beyond its own are refused."""
+    ``oov_slots`` beyond its own are refused. ``data_parallel`` serves on
+    every local device of ``device``'s type (``Grounder(devices=...)`` or
+    ``ExportedGrounder.load(data_parallel=True)``)."""
     device = resolve_device(device)
-    if data_parallel:
-        raise unported("data_parallel=True", "queue 1 item 3 (data parallel)")
+    if int((cfg_overrides or {}).get("mesh_spatial", 1) or 1) > 1:
+        raise unported(f"mesh_spatial={cfg_overrides['mesh_spatial']}", "queue 1 item 4 (spatial partitioning)")
     if (Path(model_dir) / "export.json").exists():
         if cfg_overrides or quantize:
             raise ValueError(f"an exported artifact serves as exported; cannot apply "
                              f"{dict(cfg_overrides or {}, **({'quantize': True} if quantize else {}))}")
-        g = ExportedGrounder.load(model_dir, glove_path=glove_path, device=device)
+        g = ExportedGrounder.load(model_dir, glove_path=glove_path, device=device,
+                                  data_parallel=data_parallel)
         if oov_slots and not g.oov_slots:
             raise ValueError("this artifact has no OOV capacity — re-export with "
                              "--weights_as_args=true --oov_slots=N (v3)")
@@ -289,6 +297,7 @@ def load_server_model(
     return Grounder.from_checkpoint(
         model_dir, batch_size=batch_size, cfg_overrides=cfg_overrides,
         oov_slots=oov_slots, glove_path=glove_path, device=device, quantize=quantize,
+        devices=local_devices(device) if data_parallel else None,
     )
 
 

@@ -1,4 +1,4 @@
-"""Learner — port of ``zsgnet_tpu/train/learner.py`` for one device.
+"""Learner — port of ``zsgnet_tpu/train/learner.py``.
 
 ``Learner(uid, data, cfg, device="cuda").fit(epochs, lr)`` trains with
 ``make_train_step``, validates every epoch, logs one JSON row per epoch
@@ -31,9 +31,21 @@ and ``vocab.json`` beside them. It keeps the JAX Learner's semantics:
   ``tensorboardX``, or ``torch.utils.tensorboard`` without it, when one is
   installed (never a hard dependency).
 
+* with ``cfg.do_dist`` and a process group up (``parallel.mesh``), or an
+  explicit ``mesh``, it trains data parallel: the loaders hold this rank's
+  shard of every global batch, the model takes its BatchNorm moments over
+  every rank (``cfg.bn_sync_axis``), the steps sum gradients and losses
+  over the ranks, and validation gathers every rank's per-sample metrics
+  and metadata in rank order, so every rank summarizes the same global
+  numbers and takes the same plateau decisions. Parameters start equal on
+  every rank (a seeded init on the CPU, or the same checkpoint). Rank 0
+  alone writes the log, the TensorBoard rows, the prediction dumps and the
+  checkpoints while the others wait at a barrier; a stop requested on any
+  rank stops every rank at the same batch.
+
 The loss is read back from the device every ``cfg.log_every`` steps, one
 interval late, so the loop never waits on the device for it. Not ported
-yet (it raises): ``mesh_spatial > 1``; ``do_dist`` runs on the one device.
+yet (it raises): ``mesh_spatial > 1``.
 """
 
 from __future__ import annotations
@@ -46,12 +58,15 @@ from typing import Any, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from zsgnet_tpu_torch.config import Config
 from zsgnet_tpu_torch.data.dataset import DataWrap
 from zsgnet_tpu_torch.data.embeddings import load_embedding_table
 from zsgnet_tpu_torch.models.bilstm import fold_lstm_bias_
 from zsgnet_tpu_torch.models.zsgnet import anchor_pyramid_for, get_default_net
+from zsgnet_tpu_torch.parallel import mesh as mesh_lib
+from zsgnet_tpu_torch.parallel.mesh import DataMesh
 from zsgnet_tpu_torch.parallel.train_step import (
     check_supported,
     create_train_state,
@@ -121,9 +136,18 @@ class _LateLosses:
 
 
 class Learner:
-    def __init__(self, uid: str, data: DataWrap, cfg: Config, device: str | torch.device = "cuda"):
+    def __init__(self, uid: str, data: DataWrap, cfg: Config, device: str | torch.device = "cuda",
+                 mesh: DataMesh | None = None):
         check_supported(cfg)
         self.device = resolve_device(device)
+        if mesh is None and cfg.do_dist and dist.is_available() and dist.is_initialized():
+            mesh = mesh_lib.make_mesh(cfg, self.device)
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.rank == 0
+        world = mesh.world_size if mesh is not None else 1
+        if data.train_dl.num_shards != world:
+            raise ValueError(f"the loaders hold 1/{data.train_dl.num_shards} of each batch but the data "
+                             f"mesh has {world} rank(s): get_data(cfg, shard_id=rank, num_shards=world)")
         self.uid = uid
         self.data = data
         if cfg.lr_schedule != "const" and cfg.lr_decay_steps == 0:
@@ -138,8 +162,8 @@ class Learner:
         for d in (self.log_dir, self.model_dir, self.pred_dir):
             d.mkdir(parents=True, exist_ok=True)
         self.log_file = self.log_dir / f"{uid}.jsonl"
-        self._tb = None  # the SummaryWriter class, with cfg.use_tensorboard
-        if cfg.use_tensorboard:
+        self._tb = None  # the SummaryWriter class, with cfg.use_tensorboard, on rank 0
+        if cfg.use_tensorboard and self.is_main:
             try:
                 from tensorboardX import SummaryWriter
             except ImportError:
@@ -150,12 +174,15 @@ class Learner:
                     print(f"use_tensorboard: no TensorBoard rows ({e}); the JSONL log is written")
             self._tb = SummaryWriter
 
-        self.model = get_default_net(cfg, len(data.vocab), seed=cfg.seed, device=self.device)
+        # Under a data mesh the model's BatchNorm moments are global (the
+        # JAX Learner's bn_sync_axis); cfg.json keeps the run's cfg.
+        model_cfg = cfg.replace(bn_sync_axis=cfg.data_axis) if mesh is not None else cfg
+        self.model = get_default_net(model_cfg, len(data.vocab), seed=cfg.seed, device=self.device)
         if cfg.glove_path:
             table, found = load_embedding_table(cfg.glove_path, data.vocab, cfg.emb_dim, cfg.seed)
             with torch.no_grad():
                 self.model.embedding.weight.copy_(torch.from_numpy(table))
-            print(f"glove init: {found}/{len(data.vocab)} vocab words found")
+            self._print(f"glove init: {found}/{len(data.vocab)} vocab words found")
         self.anchors = anchor_pyramid_for(cfg)
         self.state = create_train_state(cfg, self.model)
         self._train_step = None  # built at first use
@@ -163,7 +190,7 @@ class Learner:
         self._epoch_batches = 0
         self._resume_batches = 0
         self._sidecars_written = False
-        self.eval_step = make_eval_step(cfg, self.anchors, self.device)
+        self.eval_step = make_eval_step(cfg, self.anchors, self.device, self.mesh)
         self.ckpt = CheckpointManager(self.model_dir)
         # Best-by-val-Acc lives in its own single-slot store, so the
         # rotation of the latest steps never removes it.
@@ -183,14 +210,27 @@ class Learner:
     @property
     def train_step(self):
         if self._train_step is None:
-            self._train_step = make_train_step(self.cfg, self.anchors, self.device)
+            self._train_step = make_train_step(self.cfg, self.anchors, self.device, self.mesh)
         return self._train_step
 
     def request_stop(self) -> None:
         """Ask ``fit`` to stop at the next batch boundary: it checkpoints the
         position inside the epoch and returns, and a resumed ``fit`` goes on
-        from there. Safe from a signal handler (a bool store)."""
+        from there. Safe from a signal handler (a bool store). Under a data
+        mesh the ranks agree after every batch, so a request on any rank
+        stops them all at the same batch."""
         self._stop_requested = True
+
+    def _stop_agreed(self) -> bool:
+        """Whether to stop after this batch: the local request, or any
+        rank's under a data mesh of more than one rank."""
+        if self.mesh is None or self.mesh.world_size == 1:
+            return self._stop_requested
+        return mesh_lib.any_rank(self._stop_requested, self.mesh)
+
+    def _print(self, msg: str) -> None:
+        if self.is_main:
+            print(msg)
 
     # ------------------------------------------------------------------
     def fit(self, epochs: int | None = None, lr: float | None = None) -> None:
@@ -205,14 +245,14 @@ class Learner:
             if abs(self.state.lr_scale - scale) > 1e-12:
                 self.state.lr_scale = scale
                 self.plateau.scale = scale
-                print(f"fit: lr → {lr:g} via lr_scale={scale:g} "
-                      "(optimizer moments preserved; plateau continues from it)")
+                self._print(f"fit: lr → {lr:g} via lr_scale={scale:g} "
+                            "(optimizer moments preserved; plateau continues from it)")
         epochs = epochs or cfg.epochs
         n_batches_epoch = len(self.data.train_dl)
         if cfg.lr_schedule != "const" and cfg.lr_decay_steps > 0:
             total_steps = epochs * n_batches_epoch
             if total_steps > cfg.lr_decay_steps:
-                print(
+                self._print(
                     f"fit: WARNING — {total_steps} total steps exceed the LR decay horizon "
                     f"lr_decay_steps={cfg.lr_decay_steps}; steps past it run at the "
                     f"lr_min_frac={cfg.lr_min_frac} floor. Set cfg.lr_decay_steps (or "
@@ -220,17 +260,17 @@ class Learner:
                 )
         n_remaining = epochs - self.epoch
         if n_remaining <= 0:
-            print(f"fit: epoch budget {epochs} already reached (resumed at epoch "
-                  f"{self.epoch}) — nothing to train")
+            self._print(f"fit: epoch budget {epochs} already reached (resumed at epoch "
+                        f"{self.epoch}) — nothing to train")
             return
         if self.epoch:
-            print(f"fit: resuming at epoch {self.epoch}/{epochs} ({n_remaining} remaining)")
+            self._print(f"fit: resuming at epoch {self.epoch}/{epochs} ({n_remaining} remaining)")
 
         smooth = SmoothenValue()
         skip = min(self._resume_batches, n_batches_epoch)
         self._resume_batches = 0
         if skip:
-            print(f"fit: resuming epoch {self.epoch} mid-way at batch {skip}/{n_batches_epoch}")
+            self._print(f"fit: resuming epoch {self.epoch} mid-way at batch {skip}/{n_batches_epoch}")
         for _ in range(n_remaining):
             self.data.train_dl.set_epoch(self.epoch)
             self.data.train_dl.start_batch = skip
@@ -239,6 +279,7 @@ class Learner:
             n_batches = epoch_skip
             last_ls: dict[str, float] = {}
             pending: _LateLosses | None = None
+            stop = False
             for batch in self.data.train_dl:
                 self.state, ls = self.train_step(self.state, batch)
                 n_batches += 1
@@ -251,17 +292,18 @@ class Learner:
                         last_ls = pending.read()
                         smooth.add_value(last_ls["total"])
                     pending = _LateLosses(ls)
-                if self._stop_requested:
+                stop = self._stop_agreed()
+                if stop:
                     break
             if pending is not None:
                 last_ls = pending.read()
                 smooth.add_value(last_ls["total"])
-            if self._stop_requested:
+            if stop:
                 self._stop_requested = False
                 self._epoch_batches = n_batches
                 self.save_model_dict(best=False)
-                print(f"fit: stop requested — checkpointed at epoch {self.epoch} batch "
-                      f"{n_batches}/{n_batches_epoch} (resumable)")
+                self._print(f"fit: stop requested — checkpointed at epoch {self.epoch} batch "
+                            f"{n_batches}/{n_batches_epoch} (resumable)")
                 return
             train_time = time.time() - t0
             metrics = self.validate()
@@ -290,7 +332,7 @@ class Learner:
                 new_scale = self.plateau.step(acc)
                 if new_scale != self.state.lr_scale:
                     self.state.lr_scale = new_scale
-                    print(f"plateau: lr_scale → {new_scale:g}")
+                    self._print(f"plateau: lr_scale → {new_scale:g}")
 
     # ------------------------------------------------------------------
     @contextlib.contextmanager
@@ -322,11 +364,28 @@ class Learner:
                     valid = (np.asarray(valid, dtype=bool)[:, None] & batch["pair_valid"]).reshape(-1)
                     cases = None if cases is None else np.asarray(cases).reshape(-1)
                     ids = None if ids is None else np.asarray(ids).reshape(-1)
+                if self.mesh is not None and self.mesh.world_size > 1:
+                    ev, cases, ids, valid = self._gathered(ev, cases, ids, valid)
                 evaluator.update(ev, cases=cases, ids=ids, valid=valid)
         summary = evaluator.summarize()
-        if dump:
+        if dump and self.is_main:
             evaluator.dump_predictions(str(self.pred_dir / f"{self.uid}_{dump}.jsonl"))
         return summary
+
+    def _gathered(self, ev: dict[str, Tensor], cases, ids, valid) -> tuple:
+        """Every rank's per-sample metrics and host metadata of one global
+        batch, concatenated in rank order (= the global batch's order), as
+        at JAX ``learner.py:466-503``. The metrics go to the host first and
+        travel through the host group, so one route serves NCCL and gloo.
+        ``loss`` is already the global batch's on every rank."""
+        local = ({k: v.cpu().numpy() for k, v in ev.items()},
+                 None if cases is None else np.asarray(cases).reshape(-1),
+                 None if ids is None else np.asarray(ids).reshape(-1),
+                 None if valid is None else np.asarray(valid, dtype=bool).reshape(-1))
+        parts = mesh_lib.all_gather_host(local, self.mesh)
+        cat = lambda xs: None if xs[0] is None else np.concatenate(xs)  # noqa: E731
+        ev_all = {k: np.concatenate([p[0][k] for p in parts]) for k in local[0]}
+        return ev_all, cat([p[1] for p in parts]), cat([p[2] for p in parts]), cat([p[3] for p in parts])
 
     def validate(self) -> dict[str, float]:
         return self._run_eval(self.data.valid_dl, dump="val")
@@ -371,13 +430,18 @@ class Learner:
 
     def save_model_dict(self, best: bool = False) -> None:
         """Checkpoint the current state (and, with ``best``, into the best
-        store too)."""
-        self._write_sidecars()
-        payload = self._payload()
-        self.ckpt.save(self.state.step, payload)
-        if best:
-            self.ckpt_best.save(self.state.step, payload)
-            (self.model_dir / "best_step.txt").write_text(str(self.state.step))
+        store too). Under a data mesh rank 0 writes (the state is equal on
+        every rank) while the others wait at a barrier, so no rank goes on
+        to read a checkpoint that is still being written."""
+        if self.is_main:
+            self._write_sidecars()
+            payload = self._payload()
+            self.ckpt.save(self.state.step, payload)
+            if best:
+                self.ckpt_best.save(self.state.step, payload)
+                (self.model_dir / "best_step.txt").write_text(str(self.state.step))
+        if self.mesh is not None and self.mesh.world_size > 1:
+            mesh_lib.barrier(self.mesh)
 
     def _write_sidecars(self) -> None:
         """``cfg.json`` and ``vocab.json`` beside the checkpoints, so the
@@ -436,6 +500,9 @@ class Learner:
         return lr
 
     def _log_row(self, row: dict[str, Any]) -> None:
+        """The epoch's row into the JSONL log (and TensorBoard), on rank 0."""
+        if not self.is_main:
+            return
         with open(self.log_file, "a") as f:
             f.write(json.dumps(row) + "\n")
         if self._tb is not None:
