@@ -60,6 +60,20 @@ share of the step from the profiler (gloo on one card: not a scaling
 figure); (c) ``load_server_model(data_parallel=True)`` and a two-replica
 ``Grounder`` against the single-device one in float32, with no kernel
 launch.
+Phase 13, after phase 12, drives spatial partitioning on the one card: (a)
+``torch.distributed.run --nproc_per_node=2`` on this script's
+``--sp-worker``: two gloo ranks sharing ``cuda:0`` with ``mesh_spatial=2``
+train retina at 600² and at 300² (3 float32 steps of B = 4, lr 1e-6, each
+rank half of every image's rows) against one process on the same batches
+(losses, ``num_pos``, the parameters and BatchNorm statistics after the
+steps, an eval step's loss and IoU), logging where the
+reshard landed, each rank's peak memory against the one process's and the
+time under ``sp::halo`` and ``sp::reshard``, with K1 and K2 once a step a
+rank on its post-reshard block, held against their plain versions; (b)
+``Grounder(mesh_spatial=2)`` on ``["cuda:0", "cuda:0"]`` against the plain
+Grounder at buckets 1 and 16 in float32 and in int8; (c) ``serve.py --mesh_spatial=2``
+as a process answering requests; no kernel launch in (b) and (c). Gloo on
+one card: not a scaling figure.
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after. Every phase is fatal on failure. The
 next-to-last line of standard output is a JSON object describing each
@@ -1889,12 +1903,13 @@ DP_STEPS = 3  # float32 steps of the world-2 run at lr 1e-6
 DP_KEY = "DP_RESULT "  # a worker's result line
 
 
-def _torchrun(nproc: int, mode: str, args: dict, timeout: float = 420.0) -> str:
+def _torchrun(nproc: int, mode: str, args: dict, timeout: float = 420.0, worker: str = "--dp-worker") -> str:
     """``python -m torch.distributed.run --standalone --nproc_per_node=nproc``
-    on this script's data-parallel worker (``mode``, ``args``); → its output.
-    Fails on a non-zero exit or the timeout."""
+    on this script's data-parallel (or, ``worker="--sp-worker"``, spatial)
+    worker (``mode``, ``args``); → its output. Fails on a non-zero exit or
+    the timeout."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={nproc}",
-           str(Path(__file__).resolve()), "--dp-worker", mode, json.dumps(args)]
+           str(Path(__file__).resolve()), worker, mode, json.dumps(args)]
     env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
     r = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, env=env, capture_output=True, text=True,
                        timeout=timeout)
@@ -2205,6 +2220,396 @@ def _replica_anchors(g, paths: list, queries: list) -> list[int]:
     return out
 
 
+# ------------------------------------------------------------ phase 13
+
+SP_SIZES = (600, 300)  # the reference's larger config, then the default
+SP_STEPS = 3  # float32 steps of global B = 4 at lr 1e-6
+SP_BATCH = 4
+SP_VOCAB = 1000
+
+
+def _sp_cfg(res: int):
+    from zsgnet_tpu_torch.config import get_default_cfg
+
+    return get_default_cfg().replace(resize_img=(res, res), bs=SP_BATCH, compute_dtype="float32", lr=1e-6,
+                                     mesh_spatial=2, seed=SEED)
+
+
+def _sp_batches(cfg) -> list[dict]:
+    """SP_STEPS global batches at ``cfg``'s size, from the seed: uint8
+    images, queries of 3–11 tokens, one box each."""
+    h, w = cfg.resize_img
+    out = []
+    for i in range(SP_STEPS):
+        rng = np.random.default_rng((SEED, h, i))
+        b, t = cfg.bs, cfg.max_qlen
+        qlens = rng.integers(3, min(12, t + 1), size=(b,)).astype(np.int32)
+        qvec = np.where(np.arange(t)[None] < qlens[:, None], rng.integers(1, SP_VOCAB, size=(b, t)), 0)
+        lo = rng.uniform(-1.0, 0.5, size=(b, 2))
+        annot = np.clip(np.concatenate([lo, lo + rng.uniform(0.2, 0.9, size=(b, 2))], axis=1), -1.0, 1.0)
+        out.append({"img": rng.integers(0, 256, size=(b, h, w, 3)).astype(np.uint8), "qvec": qvec.astype(np.int32),
+                    "qlens": qlens, "annot": annot.astype(np.float32)})
+    return out
+
+
+def _label_ms(prof, name: str) -> dict:
+    """A profiler label's calls, host ms and the device ms of what ran under
+    it, from its host ranges (its device-timeline copy would count twice)."""
+    from torch.autograd import DeviceType
+
+    ev = [e for e in prof.key_averages() if e.key == name and e.device_type == DeviceType.CPU]
+    if not ev:
+        raise AssertionError(f"no {name} range in the profile of a spatial step")
+    return {"calls": sum(e.count for e in ev), "host_ms": sum(e.cpu_time_total for e in ev) / 1e3,
+            "device_ms": sum(e.device_time_total for e in ev) / 1e3}
+
+
+def _sp_gloo_worker(args: dict) -> None:
+    """Phase 13a, one of two gloo ranks sharing ``cuda:0`` under
+    ``mesh_spatial=2``: for each of SP_SIZES, SP_STEPS float32 train steps of
+    the global batch (each rank its half of the image rows), an eval step
+    on the first batch, where the reshard landed, the peak memory, the time under ``sp::halo`` and
+    ``sp::reshard`` in a profiled step, and K1 and K2 held against their
+    plain versions on the rank's post-reshard block; each size's results go
+    to ``<out>/sp_<size>_rank<r>.json``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zsgnet_tpu_torch.models.zsgnet import anchor_pyramid_for, get_default_net
+    from zsgnet_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from zsgnet_tpu_torch.parallel.train_step import (
+        create_train_state, make_eval_step, make_train_step, member_block, pairs_and_weights, to_device,
+    )
+
+    world = init_distributed("cuda:0", backend="gloo")
+    for res in SP_SIZES:
+        cfg = _sp_cfg(res)
+        mesh = make_mesh(cfg, world.device)
+        batches = _sp_batches(cfg)
+        model = get_default_net(cfg, SP_VOCAB, seed=SEED, device=mesh.device)
+        state = create_train_state(cfg, model)
+        anchors = anchor_pyramid_for(cfg)
+        step = make_train_step(cfg, anchors, mesh.device, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _zero_counts()
+        losses = []
+        t0 = time.perf_counter()
+        for b in batches:
+            state, ls = step(state, b)
+            losses.append({k: float(v) for k, v in ls.items()})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, peak = _counts(), torch.cuda.max_memory_allocated()
+        # The state after the SP_STEPS steps, before the eval and timed steps.
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+                   Path(args["out"]) / f"sp_{res}_state_rank{mesh.rank}.pt")
+        _zero_counts()
+        ev = make_eval_step(cfg, anchors, mesh.device, mesh)(model, dict(batches[0], valid=np.ones(cfg.bs, bool)))
+        torch.cuda.synchronize()
+        eval_launches = _counts()
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step(state, batches[0])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        t1 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(state, batches[0])
+            torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t1) * 1e3
+        labels = {name: _label_ms(prof, name) for name in ("sp::halo", "sp::reshard", "dp::all_reduce")}
+        sp = step.spatial
+        d = to_device(dict(batches[0], img=sp.rows(batches[0]["img"])), mesh.device)
+        with torch.no_grad():
+            out = model.eval()(d["img"], d["qvec"], d["qlens"], spatial=sp)
+        annot, w = pairs_and_weights(member_block(sp, d))
+        w = torch.ones(annot.shape[0], device=mesh.device) if w is None else w
+        errs = hold_loss_kernels(f"rank {mesh.rank} of 2 (gloo, cuda:0, mesh_spatial=2) at {res}²", cfg, out,
+                                 annot, w, anchors)
+        (Path(args["out"]) / f"sp_{res}_rank{mesh.rank}.json").write_text(json.dumps({
+            "rank": mesh.rank, "res": res, "backend": mesh.backend, "device": str(mesh.device),
+            "mesh": [mesh.data_size, mesh.spatial, mesh.spatial_index], "losses": losses, "launches": launches,
+            "eval_launches": eval_launches, "eval_loss": float(ev["loss"][0]), "eval_iou": ev["iou"].tolist(),
+            "landed": {k: list(v) for k, v in sp.landed.items()}, "peak_bytes": peak, "base_bytes": base,
+            "steps_s": wall,
+            "step_ms": statistics.median(times), "profiled_step_ms": profiled_ms, "labels": labels,
+            "k1_err": errs[0], "k2_err": errs[1],
+            "block_rows": int(annot.shape[0])}))
+        del model, state, step, out
+        torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+
+
+def sp_worker(mode: str, args: str) -> int:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    {"gloo": _sp_gloo_worker}[mode](json.loads(args))
+    return 0
+
+
+def _spatial_anchors(g, images: list, queries: list) -> list[int]:
+    """Each request's argmax anchor as the spatial Grounder ``g`` computes
+    it: the chunk padded to its bucket, the height split over its members."""
+    from zsgnet_tpu_torch.predict import prep_chunk
+
+    img, qvec, qlens, _, k = prep_chunk(g.cfg, g.vocab, g._pad_to(len(images)), images, queries)
+    img, qvec, qlens = torch.from_numpy(img), torch.from_numpy(qvec), torch.from_numpy(qlens)
+    canvas = g.canvas_for(len(img))
+
+    def member(d: int, ctx) -> list[int]:
+        model, anchors = g.replicas[ctx.index]
+        dev = anchors.device
+        att = model(ctx.rows(img).to(dev), qvec.to(dev), qlens, canvas=canvas, spatial=ctx)["att_out"]
+        return att.argmax(dim=-1).tolist()
+
+    (rows,) = g.local_mesh.run(member)
+    rows = rows if len(img) % g.spatial == 0 else rows[:1]
+    return [a for r in rows for a in r][:k]
+
+
+class _Daemon:
+    """``python -m zsgnet_tpu_torch.serve`` on ``model_dir`` as a child, its
+    output drained by a thread; ``url`` once it says it serves."""
+
+    def __init__(self, model_dir: Path, args: list):
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        self.url = f"http://127.0.0.1:{port}"
+        self.proc = _child(["zsgnet_tpu_torch.serve", str(model_dir), f"--port={port}", *args],
+                           Path(__file__).resolve().parent)
+        self.lines: list[str] = []
+        self.reader = threading.Thread(target=lambda: self.lines.extend(ln.rstrip() for ln in self.proc.stdout),
+                                       daemon=True)
+        self.reader.start()
+        deadline = time.monotonic() + 300
+        while not any(ln.startswith("serving ") for ln in list(self.lines)):
+            if self.proc.poll() is not None or time.monotonic() > deadline:
+                self.stop()
+                raise AssertionError("the spatial daemon did not start:\n" + "\n".join(self.lines[-40:]))
+            time.sleep(0.2)
+
+    def stop(self) -> str:
+        """SIGTERM, then its exit; → its output."""
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=120)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+        self.reader.join(timeout=30)
+        return "\n".join(self.lines)
+
+
+def check_spatial(tmp: Path, run_dir: Path, smi: str) -> tuple[list[int], dict]:
+    """Phase 13, spatial partitioning on the one card. (a) Two gloo ranks
+    sharing ``cuda:0`` with ``mesh_spatial=2`` (``torch.distributed.run``
+    on this script's ``--sp-worker``) train retina at 600² and 300²,
+    SP_STEPS float32 steps of global B = 4 at lr 1e-6, against one process
+    on the same batches (losses rtol 1e-4, ``num_pos`` exact; each rank's
+    parameters and BatchNorm statistics after the steps by ``_state_close``);
+    each rank launches K1 and K2 once a step on its post-reshard block, and
+    holds them against their plain versions. (b) ``Grounder(mesh_spatial=2)``
+    on ``["cuda:0", "cuda:0"]`` against the plain Grounder on phase 6's
+    checkpoint in float32, buckets 1 and 16, and the int8 Grounders the
+    same way. (c) ``serve.py
+    --mesh_spatial=2`` as a process answers requests as the plain Grounder
+    does. Returns the (K1, K2, K3) launches of (b) and (c), and K1's and
+    K2's per rank and size in (a)."""
+    from zsgnet_tpu_torch.models.quant import quant_scales
+    from zsgnet_tpu_torch.models.zsgnet import anchor_pyramid_for, get_default_net
+    from zsgnet_tpu_torch.ops.cuda.fused_bottleneck import fused_bottleneck_infer
+    from zsgnet_tpu_torch.ops.cuda.fused_loss import fused_match_loss, fused_match_loss_backward
+    from zsgnet_tpu_torch.parallel.train_step import create_train_state, make_eval_step, make_train_step
+    from zsgnet_tpu_torch.predict import Grounder
+
+    t_phase = time.perf_counter()
+    numbers: dict = {"a": {}}
+    # (a) Two gloo ranks on cuda:0 under mesh_spatial=2 against one process.
+    t0 = time.perf_counter()
+    out = _torchrun(2, "gloo", {"out": str(tmp)}, worker="--sp-worker")
+    t_a = time.perf_counter() - t0
+    ranks = [json.loads((tmp / f"sp_{res}_rank{r}.json").read_text()) for res in SP_SIZES for r in (0, 1)]
+    staged = "staged through host memory" in out
+    sp_launches = {}
+    for res in SP_SIZES:
+        cfg = _sp_cfg(res).replace(mesh_spatial=1)
+        batches = _sp_batches(cfg)
+        model = get_default_net(cfg, SP_VOCAB, seed=SEED, device=CUDA)
+        p0 = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        state = create_train_state(cfg, model)
+        step = make_train_step(cfg, anchor_pyramid_for(cfg), CUDA)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_one = torch.cuda.memory_allocated()
+        want = []
+        for b in batches:
+            state, ls = step(state, b)
+            want.append({k: float(v) for k, v in ls.items()})
+        torch.cuda.synchronize()
+        peak_one = torch.cuda.max_memory_allocated()
+        # Each rank's parameters and BatchNorm statistics after the steps,
+        # against the one process's (the gradients' and moments' check).
+        want_state = {k: v.cpu() for k, v in model.state_dict().items()}
+        state_close = []
+        for r in (0, 1):
+            f = tmp / f"sp_{res}_state_rank{r}.pt"
+            state_close.append(_state_close(f"{res}² rank {r} vs one process", torch.load(f, weights_only=True),
+                                            want_state, p0))
+            f.unlink()
+        del p0, want_state
+        ev = make_eval_step(cfg, anchor_pyramid_for(cfg), CUDA)(model, dict(batches[0], valid=np.ones(cfg.bs, bool)))
+        ev_loss, ev_iou = float(ev["loss"][0]), ev["iou"].tolist()
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step(state, batches[0])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        del model, state, step
+        torch.cuda.empty_cache()
+        rs = sorted((r for r in ranks if r["res"] == res), key=lambda r: r["rank"])
+        for r in rs:
+            on = "cuda:0" if CUDA.type == "cuda" else "cpu"
+            if r["backend"] != "gloo" or r["device"] != on or r["mesh"] != [1, 2, r["rank"]] \
+                    or tuple(r["launches"]) != (SP_STEPS, SP_STEPS) or tuple(r["eval_launches"]) != (1, 0):
+                raise AssertionError(f"{res}² rank {r['rank']}: {r['backend']} on {r['device']}, mesh {r['mesh']}, "
+                                     f"(K1, K2) {r['launches']} in the steps, {r['eval_launches']} in the eval step")
+            half = SP_BATCH // 2
+            if not np.isclose(r["eval_loss"], ev_loss, rtol=1e-4, atol=0) or not np.allclose(
+                    r["eval_iou"], ev_iou[r["rank"] * half:(r["rank"] + 1) * half], rtol=0, atol=1e-4):
+                raise AssertionError(f"{res}² rank {r['rank']} eval step: loss {r['eval_loss']}, IoU {r['eval_iou']} "
+                                     f"vs one process {ev_loss}, {ev_iou} (its rows {r['rank'] * half}..)")
+            for i, (g, w_) in enumerate(zip(r["losses"], want)):
+                if g["num_pos"] != w_["num_pos"] or not np.allclose([g[k] for k in ("total", "cls_ls", "box_ls")],
+                                                                   [w_[k] for k in ("total", "cls_ls", "box_ls")],
+                                                                   rtol=1e-4, atol=0):
+                    raise AssertionError(f"{res}² rank {r['rank']} step {i}: losses {g} vs one process {w_} (rtol 1e-4)")
+        if rs[0]["landed"] != rs[1]["landed"]:
+            raise AssertionError(f"{res}²: the ranks resharded at {rs[0]['landed']} and {rs[1]['landed']}")
+        sp_launches[res] = [(r["launches"], r["eval_launches"]) for r in rs]
+        rel = max(abs(g["total"] - w_["total"]) / w_["total"] for r in rs for g, w_ in zip(r["losses"], want))
+        numbers["a"][res] = {
+            "landed": rs[0]["landed"], "loss_rel": rel, "num_pos": [w_["num_pos"] for w_ in want],
+            "bn_max_diff": [bn for bn, _ in state_close], "update_rel_l2": [u for _, u in state_close],
+            "peak_gib": [r["peak_bytes"] / 2**30 for r in rs], "peak_gib_one_process": peak_one / 2**30,
+            # What the steps added to what each process held before them (the
+            # parent still holds earlier phases' tensors).
+            "step_peak_gib": [(r["peak_bytes"] - r["base_bytes"]) / 2**30 for r in rs],
+            "step_peak_gib_one_process": (peak_one - base_one) / 2**30,
+            "step_ms": [r["step_ms"] for r in rs], "step_ms_one_process": statistics.median(times),
+            "labels": [r["labels"] for r in rs], "profiled_step_ms": [r["profiled_step_ms"] for r in rs],
+            "label_share": [{k: v["host_ms"] / r["profiled_step_ms"] for k, v in r["labels"].items()} for r in rs],
+            "k1_err": [r["k1_err"] for r in rs],
+            "k2_err": [r["k2_err"] for r in rs], "block_rows": [r["block_rows"] for r in rs]}
+        n = numbers["a"][res]
+        log(f"spatial (a) {res}²: 2 gloo ranks sharing cuda:0, mesh (data 1, spatial 2), {SP_STEPS} float32 steps "
+            f"of B={SP_BATCH} == one process: losses within {rel:.2e} relative, num_pos {n['num_pos']} exact, "
+            f"BatchNorm statistics within {[f'{x:.2e}' for x in n['bn_max_diff']]} (atol 1e-3) and the parameter "
+            f"updates within relative L2 {[f'{x:.3g}' for x in n['update_rel_l2']]} (0.25) per rank; the "
+            f"reshard landed at {list(n['landed'])} (local input shapes {list(n['landed'].values())}); peak "
+            f"memory a rank {[round(x, 3) for x in n['peak_gib']]} GiB vs one process "
+            f"{n['peak_gib_one_process']:.3f} GiB, above what each held before the steps "
+            f"{[round(x, 3) for x in n['step_peak_gib']]} vs {n['step_peak_gib_one_process']:.3f} GiB; the eval step's loss and each rank's IoU == one process's "
+            f"(K1/K2 (1, 0) on it); K1/K2 (1, 1) per step per rank on its {n['block_rows']} "
+            f"post-reshard rows, held on its outputs (max abs err K1 {n['k1_err']}, K2 {n['k2_err']}); step "
+            f"{[round(x, 1) for x in n['step_ms']]} ms vs one process {n['step_ms_one_process']:.1f} ms; "
+            f"sp::halo / sp::reshard / dp::all_reduce in a profiled step of "
+            f"{[round(x, 1) for x in n['profiled_step_ms']]} ms (calls, host ms, device ms, host share): "
+            f"{[{k: (v['calls'], round(v['host_ms'], 2), round(v['device_ms'], 3), f'{sh[k]:.1%}') for k, v in lab.items()} for lab, sh in zip(n['labels'], n['label_share'])]}"
+            f" on {smi} — gloo on one card, not a scaling figure")
+    numbers["a"]["child_s"], numbers["a"]["gloo_staged"] = t_a, staged
+    log(f"spatial (a): torchrun child {t_a:.1f} s; gloo staging through host memory logged: {staged}")
+
+    # (b) Grounder(mesh_spatial=2) on one card against the plain Grounder, float32.
+    kernels = (fused_match_loss, fused_match_loss_backward, fused_bottleneck_infer)
+    for k in kernels:
+        k.launches = 0
+    model_dir = run_dir / "models" / "smoke"
+    f32 = {"compute_dtype": "float32"}
+    one = Grounder.from_checkpoint(model_dir, batch_size=BATCH, cfg_overrides=f32, device=CUDA)
+    sp = Grounder.from_checkpoint(model_dir, batch_size=BATCH, cfg_overrides=f32, devices=[CUDA, CUDA],
+                                  mesh_spatial=2)
+    val = pd.read_csv(tmp / "synthetic" / "csv_dir" / "val.csv")
+    paths = [tmp / "synthetic" / "images" / str(p) for p in val["img_id"]][:BATCH]
+    queries = [str(q) for q in val["query"]][:BATCH]
+    errs, lat = {}, {}
+    for n_req in (1, BATCH):
+        got, want_r = sp.ground(paths[:n_req], queries[:n_req]), one.ground(paths[:n_req], queries[:n_req])
+        anchors = (_spatial_anchors(sp, paths[:n_req], queries[:n_req]),
+                   _best_anchors(one, paths[:n_req], queries[:n_req], one._pad_to(n_req)))
+        errs[n_req] = _held_results(f"spatial Grounder bucket {n_req}", got, want_r, anchors)
+        ms = {"spatial": [], "plain": []}
+        for _ in range(3):
+            for name, g in (("spatial", sp), ("plain", one), ("plain", one), ("spatial", sp)):
+                t1 = time.perf_counter()
+                g.ground(paths[:n_req], queries[:n_req])
+                ms[name].append((time.perf_counter() - t1) * 1e3)
+        lat[n_req] = {k: statistics.median(v) for k, v in ms.items()}
+    sp.local_mesh.close()
+    del sp
+    # int8: both calibrate on the same first chunk through the unsharded
+    # model; the members' convs take those scales by the global height.
+    q_kw = dict(batch_size=2 * BATCH, bucket_sizes=(1, BATCH), cfg_overrides=f32, quantize=True)
+    q_one = Grounder.from_checkpoint(model_dir, device=CUDA, **q_kw)
+    q_sp = Grounder.from_checkpoint(model_dir, devices=[CUDA, CUDA], mesh_spatial=2, **q_kw)
+    q_errs = {}
+    for n_req in (BATCH, 1):
+        got, want_r = q_sp.ground(paths[:n_req], queries[:n_req]), q_one.ground(paths[:n_req], queries[:n_req])
+        anchors = (_spatial_anchors(q_sp, paths[:n_req], queries[:n_req]),
+                   _best_anchors(q_one, paths[:n_req], queries[:n_req], q_one._pad_to(n_req)))
+        q_errs[n_req] = _held_results(f"int8 spatial Grounder bucket {n_req}", got, want_r, anchors)
+    scales = [quant_scales(m) for m, _ in q_sp.replicas]
+    want_s = quant_scales(q_one.model)
+    if any(sc.keys() != want_s.keys() or any(not torch.equal(sc[k], want_s[k]) for k in want_s) for sc in scales):
+        raise AssertionError("the int8 spatial members' activation scales differ from the one-device Grounder's")
+    q_sp.local_mesh.close()
+    del q_one, q_sp
+    numbers["b"] = {"score_err": errs, "ground_ms": lat, "int8_score_err": q_errs, "int8_scales": len(want_s)}
+    log(f"spatial (b): Grounder(mesh_spatial=2) on cuda:0 twice == the plain Grounder in float32, buckets 1 and "
+        f"{BATCH}: max score differences {errs}; ground ms in turns (medians) {lat} on {smi} — two members on "
+        f"one card, not a scaling figure; int8 (batch_size {2 * BATCH}, buckets {BATCH} then 1): == the "
+        f"one-device int8 Grounder, max score differences {q_errs}, its {len(want_s)} activation scales equal "
+        "on both members")
+
+    # (c) The daemon: serve.py --mesh_spatial=2 as a process.
+    daemon = _Daemon(model_dir, [f"--batch_size={BATCH}", "--mesh_spatial=2", f"--device={CUDA.type}",
+                                 "--compute_dtype=float32"])
+    try:
+        code1, one_res, _, _ = _post(daemon.url, {"query": queries[1], "image_path": str(paths[1])})
+        code2, many, _, _ = _post(daemon.url, {"requests": [{"query": q, "image_path": str(p)}
+                                                            for p, q in zip(paths[2:5], queries[2:5])]})
+        code3, multi, _, _ = _post(daemon.url, {"queries": queries[:4], "image_path": str(paths[0])})
+    finally:
+        tail = daemon.stop()
+    rc = daemon.proc.returncode
+    if (code1, code2, code3) != (200, 200, 200) or rc != 0 or "daemon stopped" not in tail:
+        raise AssertionError(f"spatial daemon: statuses {code1}, {code2}, {code3}, exit {rc}:\n{tail[-3000:]}")
+    got = [one_res, *many["results"], *multi["results"]]
+    want_r = one.ground(paths[1:5] + [paths[0]] * 4, queries[1:5] + queries[:4])
+    for i, (a, b) in enumerate(zip(got, want_r)):
+        if abs(a["score"] - b["score"]) > 1e-4:
+            raise AssertionError(f"spatial daemon request {i}: {a} vs the plain Grounder's {b}")
+    _in_range("spatial daemon", got)
+    numbers["c"] = {"max_score_err": max(abs(a["score"] - b["score"]) for a, b in zip(got, want_r))}
+    launches = [k.launches for k in kernels]
+    if any(launches[:2]) or launches[2]:
+        raise AssertionError(f"spatial serving launched (K1, K2, K3) {launches}")
+    shared = [ln for ln in tail.splitlines() if "the members share them" in ln]
+    log(f"spatial (c): serve.py --mesh_spatial=2 ({shared[0] if shared else 'one member a device'}) answered the "
+        f"pair, requests and queries forms ({len(got)} pairs) as the plain Grounder, max score difference "
+        f"{numbers['c']['max_score_err']:.2e}; "
+        f"(K1, K2, K3) launches in (b) {launches} (the daemon's own process launches none: it has no loss)")
+    log(f"spatial phase passed in {time.perf_counter() - t_phase:.1f} s on {smi}; numbers {json.dumps(numbers)}")
+    return launches, {res: v for res, v in sp_launches.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2351,17 +2756,27 @@ def main() -> int:
         # sharing the card, data-parallel serving), after phase 11.
         dp_launches, dp_kernel_launches = check_data_parallel(Path(tmp), Path(tmp) / "run", smi)
 
+        # Phase 13: spatial partitioning (two gloo ranks sharing the card at
+        # 600² and 300², the spatial Grounder, the spatial daemon), after
+        # phase 12 and before phase 10.
+        sp_serving_launches, sp_kernel_launches = check_spatial(Path(tmp), Path(tmp) / "run", smi)
+
         # Phase 10, last: the serving formats (canvas head, int8, exported
         # artifacts) on phase 6's checkpoint. Its many profiler windows and
         # exports left the profiler without device events for phase 7's
         # bench when it ran before it.
         formats_launches = check_serving_formats(Path(tmp) / "run" / "models" / "smoke", root, smi)
-    for k, n, f, h, d in zip((k1, k2, k3), serving_launches, formats_launches, host_launches, dp_launches):
+    for k, n, f, h, d, sps in zip((k1, k2, k3), serving_launches, formats_launches, host_launches, dp_launches,
+                                  sp_serving_launches):
         k["serving_launches"], k["serving_formats_launches"], k["host_data_launches"] = n, f, h
-        k["data_parallel_serving_launches"] = d
+        k["data_parallel_serving_launches"], k["spatial_serving_launches"] = d, sps
     for i, k in enumerate((k1, k2)):
         k["data_parallel_launches"] = {"nccl_world1": dp_kernel_launches["nccl_world1"][i],
                                        "gloo_world2_per_rank": [r[i] for r in dp_kernel_launches["gloo_per_rank"]]}
+        k["spatial_launches_per_rank"] = {
+            f"{res}x{res}_{SP_STEPS}_steps_1_eval_batch": {"steps": [st[i] for st, _ in per_rank],
+                                                            "eval_batch": [evl[i] for _, evl in per_rank]}
+            for res, per_rank in sp_kernel_launches.items()}
     log(f"every phase passed in {time.perf_counter() - t_start:.1f} s, the kernels' build included")
 
     print(smi, flush=True)
@@ -2375,4 +2790,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         sys.exit(dp_worker(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--sp-worker"]:
+        sys.exit(sp_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -5,7 +5,12 @@ batch in float32 on the CPU (atol 5e-4, rtol 2e-3, the budget of
 tests/test_convert_full.py), at 64² (C3/C4/C5 8/4/2: integer top-down
 ratios) and at 80² (10/5/3: the FPN's nearest upsample maps 3 → 5 and
 5 → 10, the non-integer case of 300²'s 10 → 19). The JAX package's own
-converter maps the port's ``state_dict`` back onto the JAX params exactly."""
+converter maps the port's ``state_dict`` back onto the JAX params exactly.
+
+A JAX ``spd_stem=True`` model (its space-to-depth stem is an exact rewrite
+of the 7×7/2 conv, which the port always runs) agrees with the port within
+1e-5; under ``mesh_spatial=2`` the port enters such a model by the reshard
+at the input, as the JAX ``ResNet50`` does, and agrees as well."""
 
 import functools
 
@@ -23,6 +28,7 @@ from zsgnet_tpu.models.zsgnet import ZSGNet as JZSGNet
 from zsgnet_tpu_torch.convert import ungroup_head_channels
 from zsgnet_tpu_torch.models.bilstm import encode_query, fold_lstm_bias_, make_encoder
 from zsgnet_tpu_torch.models.zsgnet import FOCAL_PRIOR_BIAS, ZSGNet, init_weights
+from zsgnet_tpu_torch.parallel.halo import LocalMesh
 
 torch.set_num_threads(1)
 
@@ -57,6 +63,40 @@ def test_forward_matches_jax(size, n_anchors):
                                atol=5e-4, rtol=2e-3)
     np.testing.assert_allclose(got["bbx_out"].numpy(), np.asarray(want["bbx_out"]),
                                atol=5e-4, rtol=2e-3)
+
+
+@functools.lru_cache(maxsize=None)
+def _spd_setup():
+    jcfg, tcfg = cfg_pair(spd_stem=True)
+    variables = jax_variables(jcfg, VOCAB, seed=0)
+    assert "conv1_kernel" in variables["params"]["backbone"]  # the space-to-depth stem
+    batch = random_batch(np.random.default_rng(9), 4, tcfg, VOCAB)
+    want = jax.jit(lambda v, x: JZSGNet(cfg=jcfg, vocab_size=VOCAB).apply(v, x, train=False))(
+        variables, {k: jnp.asarray(batch[k]) for k in ("img", "qvec", "qlens")})
+    return port_model(tcfg, variables, VOCAB), batch, want
+
+
+def test_spd_stem_forward_matches_jax():
+    model, batch, want = _spd_setup()
+    with torch.no_grad():
+        got = model(*(torch.from_numpy(batch[k]) for k in ("img", "qvec", "qlens")))
+    for k in ("att_out", "bbx_out"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=1e-5, rtol=0, err_msg=k)
+
+
+def test_spd_stem_enters_spatial_by_the_reshard():
+    model, batch, want = _spd_setup()
+    img, qv, ql = (torch.from_numpy(batch[k]) for k in ("img", "qvec", "qlens"))
+    mesh = LocalMesh([torch.device("cpu")] * 2, 2)
+    try:
+        (members,) = mesh.run(lambda d, ctx: (model(ctx.rows(img), qv, ql, spatial=ctx), ctx.landed))
+    finally:
+        mesh.close()
+    for _, landed in members:
+        assert list(landed) == ["spd_stem"] and landed["spd_stem"] == (4, 3, 32, 64)
+    for k in ("att_out", "bbx_out"):
+        got = torch.cat([out[k] for out, _ in members])
+        np.testing.assert_allclose(got.numpy(), np.asarray(want[k]), atol=1e-5, rtol=0, err_msg=k)
 
 
 def test_jax_converter_maps_port_weights_back(setup):

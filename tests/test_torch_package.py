@@ -193,38 +193,63 @@ def test_variants_are_no_longer_refused(variant):
 
 
 def test_unported_options_still_raise_with_their_item(tmp_path, monkeypatch):
-    """What the port does not run yet names its ROADMAP.md queue 1 item:
-    spatial partitioning 4, in training, serving, the daemon and the data
-    mesh. The serving formats of item 2 (canvas head, int8, exported
-    artifacts) serve, item 2's host-data flags (``use_packed_cache``,
+    """Every ROADMAP.md queue 1 item is ported, and the calls that once
+    refused item 4 (spatial partitioning) now run: ``check_supported`` and
+    ``check_servable`` pass ``mesh_spatial=2``, ``make_mesh`` builds the
+    (data 1, spatial 2) mesh of a 2-rank group (two gloo processes) and
+    ``load_server_model`` serves a checkpoint with two members.
+    The serving formats of item 2 (canvas head, int8, exported artifacts)
+    serve, item 2's host-data flags (``use_packed_cache``,
     ``use_tensorboard``, ``normalize_on_device=False``) run, and item 3's
     data parallel runs: ``--multi_host=True`` joins the process group that
     ``torch.distributed.run`` describes (here one gloo rank on the CPU),
     calls ``main_dist`` inside it on that rank's device and destroys the
     group at exit."""
     import socket
+    import time
 
+    import numpy as np
     import torch.distributed as dist
+    import torch.multiprocessing as tmp_mp
+
+    import _torch_sp_worker as W
 
     from zsgnet_tpu_torch import main as t_main
     from zsgnet_tpu_torch.config import Config
+    from zsgnet_tpu_torch.data.vocab import Vocab
+    from zsgnet_tpu_torch.models.zsgnet import get_default_net
     from zsgnet_tpu_torch.parallel.mesh import make_mesh
     from zsgnet_tpu_torch.parallel.train_step import check_supported
     from zsgnet_tpu_torch.predict import check_servable
     from zsgnet_tpu_torch.serve import load_server_model
+    from zsgnet_tpu_torch.train.checkpoint import CheckpointManager
 
-    cases = [
-        (lambda: check_supported(Config(mesh_spatial=2)), "queue 1 item 4"),
-        (lambda: check_servable(Config(mesh_spatial=2)), "queue 1 item 4"),
-        (lambda: make_mesh(Config(mesh_spatial=2), "cpu"), "queue 1 item 4"),
-        (lambda: load_server_model(tmp_path / "ckpt", cfg_overrides={"mesh_spatial": "2"}, data_parallel=True,
-                                   device="cpu"), "queue 1 item 4"),
-    ]
+    check_supported(Config(mesh_spatial=2))
+    check_servable(Config(mesh_spatial=2))
     check_servable(Config(head_canvas=True, quant_mode="int8"))
     check_supported(Config(use_packed_cache=True, use_tensorboard=True, normalize_on_device=False))
-    for fn, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
-            fn()
+    ctx = tmp_mp.start_processes(W.two_rank_mesh, args=(str(tmp_path / "store"), str(tmp_path)), nprocs=2,
+                                 join=False, start_method="spawn")
+    cfg = Config(resize_img=(64, 64), max_qlen=8, lstm_dim=8, emb_dim=8, fpn_ch=16, head_ch=16,
+                 compute_dtype="float32")
+    vocab = Vocab.build(["the red box"])
+    ckpt = tmp_path / "ckpt"
+    CheckpointManager(ckpt).save(0, {"model": get_default_net(cfg, len(vocab), device="cpu").state_dict()})
+    (ckpt / "cfg.json").write_text(cfg.replace(vocab_size=len(vocab)).dumps())
+    vocab.save(ckpt / "vocab.json")
+    g = load_server_model(ckpt, batch_size=2, cfg_overrides={"mesh_spatial": "2"}, device="cpu")
+    assert g.spatial == 2 and len(g.ground([np.zeros((64, 64, 3), np.uint8)], ["the red box"])) == 1
+    deadline = time.monotonic() + 120
+    try:
+        while not ctx.join(timeout=5):
+            assert time.monotonic() < deadline, "the 2-rank make_mesh did not finish in 120 s"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    for r in (0, 1):
+        got = torch.load(tmp_path / f"mesh_rank{r}.pt")
+        assert got == {"spatial": 2, "data_size": 1, "data_index": 0, "spatial_index": r, "backend": "gloo"}
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]

@@ -15,8 +15,8 @@
 * With no process group no collective runs: a Learner (``do_dist=True``)
   takes an epoch of train steps and validates with every collective
   patched to raise.
-* ``make_mesh`` refuses a 2-D mesh and ``mesh_spatial`` as the JAX one does
-  (item 4 of ROADMAP.md queue 1 for the latter).
+* ``make_mesh`` refuses a 2-D mesh shape and a ``mesh_spatial`` that does
+  not divide the ranks, as the JAX one does.
 * Data-parallel serving: ``Grounder(devices=["cpu", "cpu"])`` (two
   replicas, each device batch split between them) and an
   ``ExportedGrounder`` round-robin over two devices answer as the
@@ -185,7 +185,7 @@ def test_losses_with_a_group_equal_the_plain_losses(world1, variant):
 def test_make_mesh_keeps_the_jax_checks(world1):
     with pytest.raises(ValueError, match="1-D data mesh"):
         make_mesh(Config(mesh_shape=(2, 2)), "cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(ValueError, match="mesh_spatial=2 does not divide the 1 devices"):
         make_mesh(Config(mesh_spatial=2), "cpu")
     with pytest.raises(ValueError, match="spans every rank"):
         make_mesh(Config(mesh_shape=(2,)), "cpu")

@@ -182,8 +182,8 @@ def test_from_checkpoint_overrides_and_missing_vocab(run_dir, tmp_path):
         Grounder.from_checkpoint(bare, device="cpu")
     shutil.copy(run_dir.dir / "vocab.json", tmp_path / "v.json")
     assert Grounder.from_checkpoint(bare, vocab_path=tmp_path / "v.json", device="cpu").bs == 8
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 4"):
-        Grounder(run_dir.cfg.replace(mesh_spatial=2), run_dir.vocab, {}, device="cpu")
+    with pytest.raises(ValueError, match="mesh_spatial=3 must divide the image height 64"):
+        Grounder(run_dir.cfg, run_dir.vocab, {}, device="cpu", mesh_spatial=3)
     g = Grounder.from_checkpoint(run_dir.dir, cfg_overrides={"quant_mode": "int8"}, batch_size=32, device="cpu")
     assert g.quantize and g.cfg.quant_mode == "int8" and not g.cfg.head_canvas and not g.calibrated
     g = Grounder.from_checkpoint(run_dir.dir, cfg_overrides={"quant_mode": "int8"}, device="cpu")

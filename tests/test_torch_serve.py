@@ -304,19 +304,25 @@ def test_port_daemon_matches_jax_daemon(server):
 
 
 def test_load_server_model_refuses_unported(server, tmp_path):
-    """Spatial partitioning still names its ROADMAP item (queue 1 item 4);
-    an artifact directory that is not a torch.export artifact (the JAX
-    package's have no ``format``) is refused by the artifact loader; and
-    ``data_parallel=True`` serves a checkpoint on every local device of the
-    requested type (the CPU's one replica here), answering as the plain
-    Grounder does."""
+    """An artifact directory with ``mesh_spatial`` is refused with the JAX
+    daemon's reason, and one that is not a torch.export artifact (the JAX
+    package's have no ``format``) by the artifact loader; a checkpoint with
+    ``mesh_spatial=2`` serves with the members sharing the CPU, answering as
+    the plain Grounder does; and ``data_parallel=True`` serves a checkpoint
+    on every local device of the requested type (the CPU's one replica
+    here), answering as the plain Grounder does."""
     g, _, img_path, _ = server
     (tmp_path / "export.json").write_text(json.dumps({"version": 1, "batch_size": 2, "platforms": ["cpu"]}))
+    with pytest.raises(ValueError, match="mesh_spatial serving needs a checkpoint dir"):
+        load_server_model(tmp_path, cfg_overrides={"mesh_spatial": 2}, device="cpu")
     with pytest.raises(ValueError, match="not a torch.export artifact"):
         load_server_model(tmp_path, device="cpu")
     d = _write_checkpoint(g, tmp_path / "ckpt")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        load_server_model(d, cfg_overrides={"mesh_spatial": 2}, device="cpu")
+    sp = load_server_model(d, batch_size=2, cfg_overrides={"mesh_spatial": 2}, device="cpu")
+    assert (sp.spatial, sp.devices) == (2, [torch.device("cpu")] * 2)
+    for a, b in zip(sp.ground([img_path] * 2, QUERIES[:2]), g.ground([img_path] * 2, QUERIES[:2])):
+        np.testing.assert_allclose(a["box_norm"], b["box_norm"], atol=1e-5)
+        assert abs(a["score"] - b["score"]) <= 1e-6
     dp = load_server_model(d, batch_size=2, data_parallel=True, device="cpu")
     assert dp.devices == [torch.device("cpu")]
     assert dp.ground([img_path] * 2, QUERIES[:2]) == g.ground([img_path] * 2, QUERIES[:2])
@@ -331,15 +337,17 @@ def _write_checkpoint(g: Grounder, d: Path) -> Path:
 
 
 def test_daemon_sigterm_drains_inflight_request(server, tmp_path):
-    """The real daemon process boots from a checkpoint directory (mesh
-    refused, then served), warms its buckets, and answers a request already
-    accepted when SIGTERM lands (a 3 s micro-batch window) before it exits 0."""
+    """The real daemon process boots from a checkpoint directory (served
+    plainly and spatially in process first), warms its buckets, and answers
+    a request already accepted when SIGTERM lands (a 3 s micro-batch window)
+    before it exits 0."""
     g, _, img_path, _ = server
     d = _write_checkpoint(g, tmp_path / "ckpt")
     assert load_server_model(d, batch_size=2, device="cpu").ground([img_path], ["the red box"]) == \
         g.ground([img_path], ["the red box"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        load_server_model(d, cfg_overrides={"mesh_spatial": "2"}, device="cpu")
+    (got,) = load_server_model(d, cfg_overrides={"mesh_spatial": "2"}, device="cpu").ground(
+        [img_path], ["the red box"])
+    assert abs(got["score"] - g.ground([img_path], ["the red box"])[0]["score"]) <= 1e-6
     proc = subprocess.Popen(
         [sys.executable, "-m", "zsgnet_tpu_torch.serve", str(d), "--port=0", "--batch_size=2",
          "--window_ms=3000", "--device=cpu"],

@@ -314,7 +314,7 @@ def test_validation_uses_ema_weights_with_live_bn_stats(synth_root, tmp_path):
 @pytest.mark.parametrize("key,value", [("mesh_spatial", 2)])
 def test_unported_options_raise(synth_root, tmp_path, key, value):
     cfg = tiny_cfg(synth_root, tmp_path, **{key: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="one process per member"):
         Learner("t_unported", None, cfg, device="cpu")
 
 

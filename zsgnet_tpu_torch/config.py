@@ -3,10 +3,11 @@
 A copy of ``zsgnet_tpu/config.py``'s ``Config``, ``get_default_cfg`` and
 ``update_from_dict`` with the same fields and defaults, so every
 ``cfg.json`` written for the JAX package loads here unchanged. Fields that
-select TPU-only machinery (``use_pallas``, ``use_level_path``, meshes,
-spatial partitioning) are kept for that compatibility; this package reads
-the model, loss, evaluation and serving-format (``head_canvas``,
-``quant_mode``, ``quant_head``) fields and ignores the rest.
+select TPU-only machinery (``use_pallas``, ``use_level_path``) are kept for
+that compatibility and ignored; this package reads the model, loss,
+evaluation, serving-format (``head_canvas``, ``quant_mode``,
+``quant_head``) and mesh fields (``mesh_shape``, ``bn_sync_axis``, and
+``mesh_spatial`` and ``spatial_mode`` for spatial partitioning).
 """
 
 from __future__ import annotations

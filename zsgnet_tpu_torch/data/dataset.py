@@ -24,7 +24,10 @@ units exactly.
 
 Under data parallelism (``shard_id``, ``num_shards``) every rank walks the
 same global batch sequence and collates only its slice of each global
-batch, as the JAX loader does for its hosts.
+batch, as the JAX loader does for its hosts. Under spatial partitioning
+the shards are the data indices (``parallel.mesh.data_shard``): the
+members of a spatial group collate the same slice, and the step cuts each
+member's rows of the images.
 """
 
 from __future__ import annotations

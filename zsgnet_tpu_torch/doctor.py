@@ -126,9 +126,9 @@ def _device(timeout_s: float) -> bool:
     count, name, cap, mem = out
     _row(_OK, "cuda device", f"{name}, sm_{cap[0]}{cap[1]}, {mem / 2**30:.0f} GiB, "
                              f"{count} device(s) in {time.time() - t0:.1f}s")
-    _row(_OPT, "device count", f"{count} — data parallel on them: python -m torch.distributed.run "
-         f"--nproc_per_node={count} -m zsgnet_tpu_torch.main <uid> --multi_host=True; serve with "
-         "--data_parallel=true" if count > 1 else "1")
+    _row(_OPT, "device count", f"{count} — data-parallel and mesh_spatial modes available: python -m "
+         f"torch.distributed.run --nproc_per_node={count} -m zsgnet_tpu_torch.main <uid> --multi_host=True "
+         "[--mesh_spatial=S]; serve with --data_parallel=true or --mesh_spatial=S" if count > 1 else "1")
     if cap != (9, 0):
         _row(_OPT, "nvcc arch", f"the kernels target sm_90a (Hopper); this card is sm_{cap[0]}{cap[1]}")
     return True

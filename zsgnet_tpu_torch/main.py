@@ -17,6 +17,14 @@ group that ``torch.distributed.run`` describes (NCCL on ``cuda:LOCAL_RANK``,
 gloo with ``--device=cpu``), where the JAX package calls
 ``jax.distributed.initialize``; each rank loads its shard of every global
 batch, rank 0 alone prints and writes, and the group is destroyed at exit.
+
+Spatial partitioning over S members per sample (``cfg.mesh_spatial``), D·S
+processes, with or without ``--multi_host=True``:
+
+    python -m torch.distributed.run --nproc_per_node=D·S -m zsgnet_tpu_torch.main <uid> --mesh_spatial=S
+
+Ranks d·S … d·S + S − 1 form spatial group d; each loads data index d's
+shard of every global batch.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ import torch.distributed as dist
 
 from zsgnet_tpu_torch.config import KEY_MAPS, Config, get_default_cfg
 from zsgnet_tpu_torch.data.dataset import get_data
-from zsgnet_tpu_torch.parallel.mesh import init_distributed, is_main_process
+from zsgnet_tpu_torch.parallel.mesh import data_shard, init_distributed, is_main_process
 from zsgnet_tpu_torch.train.checkpoint import load_sidecar_cfg
 from zsgnet_tpu_torch.train.learner import Learner
 from zsgnet_tpu_torch.utils.backend import resolve_device
@@ -77,8 +85,9 @@ def main_dist(uid: str, device: str | torch.device = "cuda", **kwargs) -> dict[s
     With ``resume=True`` the checkpoint directory's ``cfg.json`` becomes
     the config base and the call's kwargs override it. SIGTERM asks the
     Learner to checkpoint its position and stop. With a process group up
-    (``--multi_host``) the loaders hold this rank's shard of each batch and
-    the Learner trains data parallel."""
+    (``--multi_host``) the loaders hold this rank's shard of each batch
+    (its data index's under ``mesh_spatial``) and the Learner trains data
+    parallel."""
     device = resolve_device(device)
     cfg_file = kwargs.pop("cfg_file", None)
     cfg = get_default_cfg(cfg_file).replace(uid=uid, **kwargs)
@@ -90,7 +99,7 @@ def main_dist(uid: str, device: str | torch.device = "cuda", **kwargs) -> dict[s
             if is_main_process():
                 print(f"resume: config base loaded from {ckpt_root / 'cfg.json'}")
     np.random.seed(cfg.seed)
-    shard_id, num_shards = (dist.get_rank(), dist.get_world_size()) if dist.is_initialized() else (0, 1)
+    shard_id, num_shards = data_shard(cfg)
     learn = Learner(uid, get_data(cfg, shard_id=shard_id, num_shards=num_shards), cfg, device=device)
     if cfg.only_val:
         metrics = learn.validate()
@@ -114,6 +123,8 @@ def main_dist(uid: str, device: str | torch.device = "cuda", **kwargs) -> dict[s
 
 def main() -> None:
     uid, overrides, multi_host, device = parse_args(sys.argv[1:])
+    if int(overrides.get("mesh_spatial", 1)) > 1:
+        multi_host = True  # one process per spatial member
     if not multi_host:
         main_dist(uid, device=device, **overrides)
         return

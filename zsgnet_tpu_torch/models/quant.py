@@ -170,8 +170,10 @@ class ScaleBuffers:
     model's, or the JAX ``quant`` collection through ``convert``) loads into
     a fresh module."""
 
-    def absmax(self, prefix: str, x: Tensor) -> Tensor:
-        name = f"{prefix}_absmax_{x.shape[-2]}x{x.shape[-1]}"
+    def absmax(self, prefix: str, x: Tensor, rows: int | None = None) -> Tensor:
+        """The scale of ``x``'s spatial shape, or of ``rows`` × its width for
+        a height shard of a ``rows``-high input."""
+        name = f"{prefix}_absmax_{rows or x.shape[-2]}x{x.shape[-1]}"
         buf = getattr(self, name, None)
         if buf is None:
             buf = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -193,18 +195,22 @@ class ScaleBuffers:
 class QuantConv2d(ScaleBuffers, nn.Conv2d):
     """``nn.Conv2d`` with int8 inference (``mode`` "off", "calib" or
     "int8"; ``percentile`` clips the calibration statistic). ``padding=``
-    overrides the module's padding for one call."""
+    overrides the module's padding for one call; ``rows=`` (a height shard's
+    global input height, ``parallel.halo.conv_rows``) keys the activation
+    scale in place of ``x``'s height."""
 
     def __init__(self, *args, mode: str = "off", percentile: float = 1.0, **kw):
         super().__init__(*args, **kw)
         self.mode, self.percentile = mode, percentile
 
-    def forward(self, x: Tensor, padding: int | None = None) -> Tensor:
+    def forward(self, x: Tensor, padding: int | None = None, rows: int | None = None) -> Tensor:
         pad = self.padding if padding is None else padding
         if self.mode == "int8":
-            y = quantized_conv(x, self.absmax("act", x), self.weight, self.bias, self.stride, pad, self.dilation)
+            y = quantized_conv(x, self.absmax("act", x, rows), self.weight, self.bias, self.stride, pad, self.dilation)
             return y.to(torch.get_autocast_dtype("cuda")) if x.is_cuda and torch.is_autocast_enabled("cuda") else y
         if self.mode == "calib":
+            if rows is not None:
+                raise ValueError("a height shard has no whole-input statistic: calibrate the unsharded model")
             with torch.no_grad():
                 self.record("act", x, self.percentile)
         elif self.mode != "off":

@@ -21,6 +21,19 @@ and its downsample).
 the Learner does under a data mesh) takes its training-mode BatchNorm
 moments over every rank of the process group, as the JAX package's
 BatchNorm with ``axis_name`` does under ``shard_map``.
+
+``forward(x, spatial)`` (a ``parallel.halo.SpatialCtx``) takes a
+height-sharded image: every height-crossing op exchanges halo rows and runs
+with zero height padding, the first one whose local height
+``halo_plan`` rejects is preceded by the reshard, and the taps come back
+with their flags (still sharded or not), as the JAX ``ResNet50`` returns
+them. The training-mode BatchNorm moments are then taken over every rank of
+both axes (``spatial.bn_group``) whether or not ``sync_bn`` is set: before
+the reshard the members hold different rows of the same samples.
+The stem is always the plain 7×7/2 conv, which the JAX
+space-to-depth stem (``spd_stem``) rewrites exactly; under ``spatial`` an
+``spd_stem`` model enters by the reshard at the input, as the JAX one does. Under ``remat`` the recomputation of a block
+exchanges its halos again, in the same order on every rank.
 """
 
 from __future__ import annotations
@@ -35,6 +48,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from zsgnet_tpu_torch.models.quant import conv_for
+from zsgnet_tpu_torch.parallel.halo import conv_rows, halo_plan, max_pool_rows
 from zsgnet_tpu_torch.parallel.mesh import all_reduce_
 
 Tensor = torch.Tensor
@@ -47,11 +61,12 @@ class _SyncBatchNorm(torch.autograd.Function):
     global mean (flax's exact two-pass variance); the backward sums Σdy and
     Σdy·x̂. The weight and bias gradients stay this rank's partials, which
     the train step sums over the ranks with every other gradient. Computes
-    in float32 and returns ``x``'s dtype; → (y, mean, biased variance)."""
+    in float32 (float64 for a float64 ``x``) and returns ``x``'s dtype;
+    → (y, mean, biased variance)."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps, group):
-        x32 = x.float()
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = (0, 2, 3)
         c = x.shape[1]
         stats = torch.cat([x32.sum(dims), x32.new_full((1,), x.numel() // c)])
@@ -63,7 +78,8 @@ class _SyncBatchNorm(torch.autograd.Function):
         all_reduce_(sq, group)
         var = sq / count
         invstd = torch.rsqrt(var + eps)
-        y = xc * invstd[None, :, None, None] * weight.float()[None, :, None, None] + bias.float()[None, :, None, None]
+        y = xc * invstd[None, :, None, None] * weight.to(x32.dtype)[None, :, None, None] + \
+            bias.to(x32.dtype)[None, :, None, None]
         ctx.save_for_backward(x, weight, mean, invstd, count)
         ctx.group = group
         ctx.mark_non_differentiable(mean, var)
@@ -74,21 +90,24 @@ class _SyncBatchNorm(torch.autograd.Function):
         x, weight, mean, invstd, count = ctx.saved_tensors
         dims = (0, 2, 3)
         c = x.shape[1]
-        dy32 = dy.float()
-        xhat = (x.float() - mean[None, :, None, None]) * invstd[None, :, None, None]
+        dy32 = dy.to(mean.dtype)
+        xhat = (x.to(mean.dtype) - mean[None, :, None, None]) * invstd[None, :, None, None]
         local = torch.cat([dy32.sum(dims), (dy32 * xhat).sum(dims)])
         dbias, dweight = local[:c].clone(), local[c:].clone()
         all_reduce_(local, ctx.group)
         mean_dy, mean_dy_xhat = local[:c] / count, local[c:] / count
         dx = (dy32 - mean_dy[None, :, None, None] - xhat * mean_dy_xhat[None, :, None, None]) * (
-            invstd * weight.float())[None, :, None, None]
+            invstd * weight.to(mean.dtype))[None, :, None, None]
         return dx.to(x.dtype), dweight.to(weight.dtype), dbias.to(weight.dtype), None, None
 
 
-def _sync_group():
-    """The process group to take BatchNorm moments over: the default group
-    when more than one rank is up, else None (one rank's moments are the
-    global ones)."""
+def _sync_group(spatial=None):
+    """The process group to take BatchNorm moments over: under ``spatial``
+    its ``bn_group`` (the whole world: both mesh axes), else the default
+    group when more than one rank is up, else None (one rank's moments are
+    the global ones)."""
+    if spatial is not None:
+        return spatial.bn_group
     if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
         return dist.group.WORLD
     return None
@@ -117,7 +136,10 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     While ``frozen_stats`` is set (the recomputation under remat) the
     training-mode forward normalizes with the batch's moments as usual and
-    updates nothing."""
+    updates nothing.
+
+    ``forward(x, spatial)`` synchronizes over ``spatial.bn_group`` in
+    training mode, ``sync`` or not."""
 
     frozen_stats = False
 
@@ -125,10 +147,10 @@ class BatchNorm2d(nn.BatchNorm2d):
         super().__init__(num_features)
         self.sync = sync
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, spatial=None) -> Tensor:
         if not self.training:
             return super().forward(x)
-        group = _sync_group() if self.sync else None
+        group = _sync_group(spatial) if (self.sync or spatial is not None) else None
         if group is not None:
             y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias, self.eps, group)
             if not self.frozen_stats:
@@ -172,6 +194,7 @@ class Bottleneck(nn.Module):
                  sync_bn: bool = False):
         super().__init__()
         out_ch = width * self.expansion
+        self.stride = stride
         self.conv1 = conv_for(quant_mode, in_ch, width, 1, bias=False)
         self.bn1 = BatchNorm2d(width, sync_bn)
         self.conv2 = conv_for(quant_mode, width, width, 3, stride=stride, padding=1, bias=False)
@@ -186,20 +209,29 @@ class Bottleneck(nn.Module):
                 BatchNorm2d(out_ch, sync_bn),
             )
 
-    def forward(self, x: Tensor) -> Tensor:
-        identity = x if self.downsample is None else self.downsample(x)
-        y = self.relu(self.bn1(self.conv1(x)))
-        y = self.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
+    def forward(self, x: Tensor, spatial=None, sharded: bool = False) -> Tensor:
+        """``spatial``: BatchNorm moments over its ``bn_group``; with
+        ``sharded`` the input is height-sharded and every conv runs on the
+        shard through ``conv_rows``, the 3×3 exchanging halos (the caller
+        checked ``halo_plan``)."""
+        sp = spatial if sharded else None
+        identity = x
+        if self.downsample is not None:
+            identity = self.downsample[1](conv_rows(self.downsample[0], x, sp), spatial)
+        y = self.relu(self.bn1(conv_rows(self.conv1, x, sp), spatial))
+        y = self.relu(self.bn2(conv_rows(self.conv2, y, sp), spatial))
+        y = self.bn3(conv_rows(self.conv3, y, sp), spatial)
         return self.relu(y + identity)
 
 
 class ResNet50(nn.Module):
     """(B, 3, H, W) normalized image → (C3, C4, C5)."""
 
-    def __init__(self, remat: bool = False, quant_mode: str = "off", sync_bn: bool = False):
+    def __init__(self, remat: bool = False, quant_mode: str = "off", sync_bn: bool = False,
+                 spd_stem: bool = False):
         super().__init__()
         self.remat = remat
+        self.spd_stem = spd_stem
         self.conv1 = conv_for(quant_mode, 3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm2d(64, sync_bn)
         self.relu = nn.ReLU(inplace=True)
@@ -213,18 +245,34 @@ class ResNet50(nn.Module):
                 in_ch = width * Bottleneck.expansion
             setattr(self, f"layer{stage_i + 1}", nn.Sequential(*blocks))
 
-    def _stage(self, stage: nn.Sequential, x: Tensor) -> Tensor:
+    def _block(self, block: Bottleneck, x: Tensor, spatial=None, sharded: bool = False) -> Tensor:
+        args = (x,) if spatial is None else (x, spatial, sharded)
         if not (self.remat and self.training and torch.is_grad_enabled()):
-            return stage(x)
-        for block in stage:
-            x = checkpoint(block, x, use_reentrant=False,
-                           context_fn=lambda b=block: (contextlib.nullcontext(), frozen_bn_stats(b)))
-        return x
+            return block(*args)
+        return checkpoint(block, *args, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(), frozen_bn_stats(block)))
 
-    def forward(self, x: Tensor) -> tuple[Tensor, Tensor, Tensor]:
-        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
-        c2 = self._stage(self.layer1, x)
-        c3 = self._stage(self.layer2, c2)
-        c4 = self._stage(self.layer3, c3)
-        c5 = self._stage(self.layer4, c4)
-        return c3, c4, c5
+    def forward(self, x: Tensor, spatial=None):
+        """→ (C3, C4, C5); under ``spatial`` → ((C3, C4, C5), flags), flag i
+        true where tap i is still height-sharded."""
+        sharded = spatial is not None
+        if sharded and self.spd_stem:  # the JAX SPD stem has no halo variant: batch-split from the input
+            x, sharded = spatial.reshard(x, "spd_stem"), False
+        if sharded and halo_plan(x.shape[2], 7, 2, 3) is None:
+            x, sharded = spatial.reshard(x, "stem"), False
+        x = conv_rows(self.conv1, x, spatial if sharded else None)
+        x = self.relu(self.bn1(x, spatial))
+        plan = halo_plan(x.shape[2], 3, 2, 1) if sharded else None
+        if sharded and plan is None:
+            x, sharded = spatial.reshard(x, "maxpool"), False
+        x = max_pool_rows(spatial.halo(x, *plan, fill=float("-inf"))) if sharded else self.maxpool(x)
+        feats, flags = [], []
+        for stage_i in range(4):
+            for block_i, block in enumerate(getattr(self, f"layer{stage_i + 1}")):
+                if sharded and halo_plan(x.shape[2], 3, block.stride, 1) is None:
+                    x, sharded = spatial.reshard(x, f"layer{stage_i + 1}.{block_i}"), False
+                x = self._block(block, x, spatial, sharded)
+            if stage_i >= 1:
+                feats.append(x)
+                flags.append(sharded)
+        return tuple(feats) if spatial is None else (tuple(feats), tuple(flags))

@@ -42,6 +42,14 @@ pass (``models/resnet.py``). ``cfg.bn_sync_axis`` (set by the Learner under
 a data mesh) takes ResNet-50's training-mode BatchNorm moments over every
 rank of the process group.
 
+``forward(..., spatial=ctx)`` (``parallel.halo``) takes this member's rows
+of the image (all B samples, H/S rows): ResNet-50 and the FPN exchange
+halos and reshard (``models/resnet.py``, ``models/fpn.py``), SSD-VGG
+reshards at its input, and the queries are sliced to the member's batch
+block after the visual stream, so every output carries that block (B/S
+rows; all B rows where a serving group gathered a batch below S). The head
+and its canvas run on it unchanged.
+
 ``cfg.compute_dtype == "bfloat16"`` runs the backbone and heads under
 ``torch.autocast`` on CUDA; the query encoder and the outputs stay float32.
 
@@ -138,7 +146,7 @@ class ZSGNet(nn.Module):
         if cfg.mdl_to_use == "retina":
             self.backbone = nn.ModuleDict({
                 "encoder": ResNet50(remat=cfg.remat_backbone, quant_mode=qm,
-                                    sync_bn=bool(cfg.bn_sync_axis)),
+                                    sync_bn=bool(cfg.bn_sync_axis), spd_stem=cfg.spd_stem),
                 "fpn": FPN(cfg.fpn_ch, quant_mode=qm),
             })
             channels = (cfg.fpn_ch,) * 5
@@ -183,9 +191,14 @@ class ZSGNet(nn.Module):
             self._canvases[key] = (layout, *chw)
         return self._canvases[key]
 
-    def _features(self, x: Tensor) -> tuple[Tensor, ...]:
+    def _features(self, x: Tensor, spatial=None) -> tuple[Tensor, ...]:
         if self.cfg.mdl_to_use == "retina":
+            if spatial is not None:
+                feats, flags = self.backbone["encoder"](x, spatial)
+                return self.backbone["fpn"](*feats, spatial=spatial, shard_flags=flags)
             return self.backbone["fpn"](*self.backbone["encoder"](x))
+        if spatial is not None:
+            x = spatial.reshard(x, "ssd_vgg input")
         return self.backbone(x)
 
     @staticmethod
@@ -220,7 +233,7 @@ class ZSGNet(nn.Module):
         return [out[:, :, r : r + h, c : c + w] for (r, c), (h, w) in zip(layout.offsets, layout.sizes)]
 
     def forward(self, img: Tensor, qvec: Tensor, qlens: Tensor, canvas: bool | None = None,
-                packed_lstm: bool = True) -> dict:
+                packed_lstm: bool = True, spatial=None) -> dict:
         """img (B, H, W, 3) uint8 (normalized here, in float32) or float
         already normalized; qvec (N, T) int and qlens (N,) int with N a
         multiple of B (B = 1 against N queries, or B = N), or grouped:
@@ -228,7 +241,17 @@ class ZSGNet(nn.Module):
         ``canvas`` picks the canvas head for this call (default
         ``cfg.head_canvas``; per-level heads have none). ``packed_lstm=False``
         encodes the queries with the masked scan, which ``torch.export``
-        traces."""
+        traces. ``spatial``: ``img`` holds this member's rows and the
+        queries are the whole group's, one per image (or Q per image)."""
+        if spatial is not None:
+            if self.training and self.cfg.mdl_to_use != "retina" and self.cfg.spatial_mode == "halo":
+                raise NotImplementedError(
+                    "halo spatial partitioning is retina-only; ssd_vgg uses the "
+                    "(measured-exact) GSPMD path"
+                )
+            if qvec.shape[0] != img.shape[0]:
+                raise ValueError(f"spatial: {qvec.shape[0]} query rows for {img.shape[0]} images")
+            qvec, qlens = spatial.slice_batch(qvec), spatial.slice_batch(qlens)
         if qvec.dim() == 3:
             qvec = qvec.reshape(-1, qvec.shape[-1])
             qlens = qlens.reshape(-1)
@@ -242,12 +265,12 @@ class ZSGNet(nn.Module):
         )
         q = (encode_query if packed_lstm else encode_query_masked)(self.embedding, self.lstm, qvec, qlens)
         b, a = q.shape[0], self.cfg.num_anchors
-        if b % x.shape[0]:
+        if spatial is None and b % x.shape[0]:
             raise ValueError(f"{b} queries do not divide among {x.shape[0]} images")
         use_canvas = (self.cfg.head_canvas if canvas is None else canvas) and hasattr(self, "head")
         atts, bbxs, feat_sizes = [], [], []
         with autocast:
-            feats = self._features(x)
+            feats = self._features(x, spatial)
             if use_canvas:
                 outs = self._canvas_head(feats, q)
             else:

@@ -22,6 +22,16 @@ ranks, so it needs no device and no synchronization with the device
 stream under either backend. Every device collective runs under the
 profiler label ``dp::all_reduce`` (:func:`all_reduce_`), which is how a
 trace shows the data-parallel share of a step.
+
+``cfg.mesh_spatial = S > 1`` makes the mesh 2-D, ``(data, spatial)`` as in
+the JAX package, over the same ranks laid out data-major: rank = d·S + s,
+so each spatial group is S consecutive ranks with a process group of its
+own (``DataMesh.spatial_group``; ``parallel.halo`` exchanges rows in it).
+The loaders shard each global batch over the D = world/S data indices, so
+the members of a spatial group hold the same samples. After the backbone's
+reshard each rank holds its own block of them, so losses, gradients and
+BatchNorm moments stay summed over the whole world (``group``), and the
+rank order of :func:`all_gather_host` is the global batch's order.
 """
 
 from __future__ import annotations
@@ -47,20 +57,37 @@ BUCKET_BYTES = 25 * 2**20
 class DataMesh:
     """One process's place in the data mesh: its rank, the world size, its
     device, the process group of the device collectives and a gloo group
-    over the same ranks for host objects."""
+    over the same ranks for host objects. Under spatial partitioning
+    (``spatial`` S > 1) the rank is d·S + s: ``data_index`` d of
+    ``data_size`` and member s (``spatial_index``) of ``spatial_group``."""
 
     rank: int
     world_size: int
     device: torch.device
     group: Any
     host_group: Any
+    spatial: int = 1
+    spatial_group: Any = None
 
     @property
     def backend(self) -> str:
         return dist.get_backend(self.group)
 
+    @property
+    def data_size(self) -> int:
+        return self.world_size // self.spatial
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.spatial
+
+    @property
+    def spatial_index(self) -> int:
+        return self.rank % self.spatial
+
 
 _HOST_GROUPS: dict[Any, Any] = {}
+_SPATIAL_GROUPS: dict[tuple[Any, int], Any] = {}
 
 
 def _host_group(group) -> Any:
@@ -111,24 +138,53 @@ def init_distributed(
 
 def make_mesh(cfg: Config, device: str | torch.device = "cuda") -> DataMesh:
     """The data mesh of the process group that is up, with ``device`` as
-    this rank's device. Keeps the JAX checks: the mesh is 1-D, and
-    ``cfg.mesh_spatial > 1`` (a second, spatial axis) is not ported."""
+    this rank's device. Keeps the JAX checks: the mesh is 1-D, or 2-D
+    ``(data, spatial)`` with ``cfg.mesh_spatial`` S > 1, where S must divide
+    the ranks (``mesh_shape`` -1) and data·S may not exceed them. The mesh
+    spans every rank."""
     if len(cfg.mesh_shape) != 1:
         raise ValueError("zsgnet uses a 1-D data mesh (the model fits one chip)")
-    if cfg.mesh_spatial > 1:
-        raise NotImplementedError(
-            f"mesh_spatial={cfg.mesh_spatial!r} is not ported yet: see ROADMAP.md "
-            "queue 1 item 4 (spatial partitioning)"
-        )
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: no process group — call init_distributed first")
     world = dist.get_world_size()
     n = cfg.mesh_shape[0]
-    if n not in (-1, world):
+    sp = max(int(cfg.mesh_spatial), 1)
+    if sp > 1:
+        if n == -1 and world % sp:
+            raise ValueError(
+                f"mesh_spatial={sp} does not divide the {world} devices; "
+                "pick a divisor or set mesh_shape=(n,) explicitly"
+            )
+        n = n if n != -1 else world // sp
+        if n < 1 or n * sp > world:
+            raise ValueError(f"mesh (data={n}, spatial={sp}) needs {max(n, 1) * sp} devices, have {world}")
+    if n not in (-1, world // sp):
         raise ValueError(f"mesh_shape={tuple(cfg.mesh_shape)} but the process group has {world} "
                          "ranks: the data mesh spans every rank (-1 for all)")
     group = dist.group.WORLD
-    return DataMesh(dist.get_rank(), world, resolve_device(device), group, _host_group(group))
+    rank = dist.get_rank()
+    spatial_group = _spatial_group(group, sp, rank) if sp > 1 else None
+    return DataMesh(rank, world, resolve_device(device), group, _host_group(group), sp, spatial_group)
+
+
+def _spatial_group(world_group, sp: int, rank: int) -> Any:
+    """This rank's spatial group: ranks [d·S, (d+1)·S). Every rank creates
+    every group, in the same order, once per default group."""
+    key = (world_group, sp)
+    if key not in _SPATIAL_GROUPS:
+        groups = [dist.new_group(list(range(d * sp, (d + 1) * sp))) for d in range(dist.get_world_size() // sp)]
+        _SPATIAL_GROUPS[key] = groups
+    return _SPATIAL_GROUPS[key][rank // sp]
+
+
+def data_shard(cfg: Config) -> tuple[int, int]:
+    """(shard, shards) of the loaders in the process group that is up: the
+    data index and data size of the ``(data, spatial)`` grid (rank and
+    world for a 1-D mesh), (0, 1) without a group."""
+    if not dist.is_initialized():
+        return 0, 1
+    sp = max(int(cfg.mesh_spatial), 1)
+    return dist.get_rank() // sp, dist.get_world_size() // sp
 
 
 def local_devices(device: str | torch.device = "cuda") -> list[torch.device]:

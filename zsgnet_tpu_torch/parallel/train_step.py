@@ -36,7 +36,16 @@ its buffer broadcast and bucket hooks would only repeat what the
 synchronized BatchNorm and the explicit sum already give. The evaluation
 step sums its loss over the ranks. Without a mesh no collective is issued.
 
-Not ported yet: spatial partitioning (``mesh_spatial``).
+Under a mesh with ``spatial`` S > 1 (``cfg.mesh_spatial``) the step runs the
+JAX halo step: each rank takes the rows of its spatial member from its data
+index's slice of the batch, the model exchanges halos and reshards
+(``parallel.halo``), and ``annot``, ``pair_valid`` and ``valid`` are sliced
+to the member's batch block after the reshard. From there the step is the
+data-parallel one over every rank: the loss (K1 and K2 on the card) on the
+rank's block, normalized by the count over the world, gradients and losses
+summed over the world, BatchNorm moments over the world. Under
+``grad_accum=k`` each micro-batch must divide over the S members. SSD-VGG
+(the JAX ``gspmd`` mode) reshards at its input.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ from zsgnet_tpu_torch.config import Config
 from zsgnet_tpu_torch.ops import anchors as anchor_ops
 from zsgnet_tpu_torch.ops import losses
 from zsgnet_tpu_torch.ops.cuda.fused_loss import pack_anchors, zsg_loss_fused
+from zsgnet_tpu_torch.parallel.halo import group_spatial, reshard_batch_error, spatial_train_mode
 from zsgnet_tpu_torch.parallel.mesh import DataMesh, all_reduce_sum, all_reduce_sum_
 from zsgnet_tpu_torch.train.evaluator import eval_batch
 from zsgnet_tpu_torch.utils.backend import resolve_device
@@ -59,12 +69,25 @@ Tensor = torch.Tensor
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise for the training options this port does not run yet, naming the
-    ROADMAP queue item that ports each."""
-    if cfg.mesh_spatial > 1:
+    """Raise for the spatial training modes the JAX step refuses, with its
+    words: GSPMD training of retina, and halo training of SSD-VGG."""
+    if cfg.mesh_spatial <= 1:
+        return
+    mode = spatial_train_mode(cfg)
+    if mode == "gspmd" and cfg.mdl_to_use == "retina":
         raise NotImplementedError(
-            f"mesh_spatial={cfg.mesh_spatial!r} is not ported yet: see ROADMAP.md "
-            "queue 1 item 4 (spatial partitioning)"
+            "spatial_mode='gspmd' training is not supported for "
+            "mdl_to_use='retina': jax 0.9's SPMD partitioner mis-compiles "
+            "the gradient of the ResNet+FPN forward under a height-sharded "
+            "image (loss shifts ~8e-3, grads 1.5-22x off; see "
+            "tools/check_spatial_gspmd.py). Use spatial_mode='auto'/'halo' "
+            "(manual shard_map halo exchanges, parallel/halo.py), ssd_vgg, "
+            "or spatial EVAL/serving which is unaffected."
+        )
+    if mode == "halo" and cfg.mdl_to_use != "retina":
+        raise NotImplementedError(
+            "spatial_mode='halo' is implemented for retina only; ssd_vgg "
+            "trains exactly under spatial_mode='gspmd'/'auto'"
         )
 
 
@@ -137,6 +160,13 @@ def pairs_and_weights(b: dict[str, Tensor], valid: Tensor | None = None) -> tupl
         pv = b["pair_valid"].float()
         w = (pv if w is None else w[:, None] * pv).reshape(-1)
     return annot, w
+
+
+def member_block(sp, b: dict[str, Tensor]) -> dict[str, Tensor]:
+    """The spatial member's batch block of the per-sample keys other than
+    the image and the queries (which the model takes whole): the block its
+    model outputs carry after the reshard."""
+    return {k: v if k in ("img", "qvec", "qlens") else sp.slice_batch(v) for k, v in b.items()}
 
 
 @dataclasses.dataclass
@@ -233,10 +263,14 @@ def make_train_step(
     """→ ``step(state, batch) -> (state, loss dict)``; ``state`` is updated
     in place. ``batch`` is a host batch (numpy) with at least
     :func:`train_batch_keys`: under ``mesh``, this rank's slice of the
-    global batch, and the returned losses are the global batch's."""
+    global batch (its data index's, under a spatial mesh), and the returned
+    losses are the global batch's. ``step.spatial`` is the step's spatial
+    context (None without a spatial mesh); its ``landed`` says where the
+    reshards landed."""
     dev = resolve_device(device)
     check_supported(cfg)
     group = mesh.group if mesh is not None else None
+    sp = group_spatial(mesh)
     compute_loss = make_compute_loss(cfg, anchors_cthw, dev, group)
     k = int(cfg.grad_accum)
     scheduled = cfg.lr_schedule != "const" or cfg.warmup_steps > 0
@@ -244,7 +278,11 @@ def make_train_step(
         lr_schedule_scale(cfg, 0)  # a missing decay horizon raises here
 
     def forward_loss(model: torch.nn.Module, b: dict[str, Tensor]) -> dict[str, Tensor]:
-        out = model(b["img"], b["qvec"], b["qlens"])
+        if sp is None:
+            out = model(b["img"], b["qvec"], b["qlens"])
+        else:  # the member's rows in; its batch block of everything out
+            out = model(b["img"], b["qvec"], b["qlens"], spatial=sp)
+            b = member_block(sp, b)
         annot, w = pairs_and_weights(b)
         return compute_loss(out, annot, sample_weight=w)
 
@@ -282,7 +320,13 @@ def make_train_step(
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict[str, Tensor]]:
         model = state.model
         model.train()
-        b = to_device({key: batch[key] for key in train_batch_keys(cfg)}, dev)
+        batch = {key: batch[key] for key in train_batch_keys(cfg)}
+        if sp is not None:
+            bsz = batch["img"].shape[0]
+            if bsz % k == 0 and (bsz // k) % sp.size:  # before any exchange, on every rank
+                raise reshard_batch_error(bsz // k, sp.size)
+            batch["img"] = sp.rows(batch["img"])
+        b = to_device(batch, dev)
         state.optimizer.zero_grad(set_to_none=True)
         if k > 1:
             ls = grads_accumulated(model, b)
@@ -318,6 +362,7 @@ def make_train_step(
         state.step += 1
         return state, ls
 
+    step.spatial = sp
     return step
 
 
@@ -332,17 +377,25 @@ def make_eval_step(
     wrap-padded tail rows count zero times; a grouped batch's metrics are
     per pair (B·Q rows), its loss weighted by ``valid`` times ``pair_valid``.
     Under ``mesh`` the metrics are this rank's rows and the loss is the
-    global batch's (summed over the ranks)."""
+    global batch's (summed over the ranks); under a spatial mesh the rows
+    are this rank's block of its data index's slice (:func:`member_block`)."""
     dev = resolve_device(device)
     anchors = torch.as_tensor(anchors_cthw, dtype=torch.float32).to(dev)
     group = mesh.group if mesh is not None else None
+    sp = group_spatial(mesh)
     compute_loss = make_compute_loss(cfg, anchors_cthw, dev, group)
 
     @torch.inference_mode()
     def run(model: torch.nn.Module, batch: dict) -> dict[str, Tensor]:
         model.eval()
+        if sp is not None:
+            batch = dict(batch, img=sp.rows(batch["img"]))
         b = to_device(batch, dev)
-        out = model(b["img"], b["qvec"], b["qlens"])
+        if sp is None:
+            out = model(b["img"], b["qvec"], b["qlens"])
+        else:
+            out = model(b["img"], b["qvec"], b["qlens"], spatial=sp)
+            b = member_block(sp, b)
         annot, w = pairs_and_weights(b, b.get("valid"))
         ev = eval_batch(out["att_out"], out["bbx_out"], anchors, annot, cfg.acc_iou_threshold)
         total = compute_loss(out, annot, sample_weight=w)["total"]

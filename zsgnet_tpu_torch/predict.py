@@ -27,7 +27,12 @@ box columns are ignored) to JSONL predictions:
 1-D mesh: one replica of the weights on each listed device, every device
 batch split into equal slices over the replicas.
 
-Not ported yet (it raises, naming its ROADMAP item): ``mesh_spatial``.
+``Grounder(mesh_spatial=S, devices=[...])`` serves spatially, the JAX
+``Grounder`` on a ``(data, spatial)`` mesh: the devices (D·S of them,
+data-major; they may repeat) form D groups of S members, each device batch
+splits over the D groups only, and each group runs one forward with the
+image height split over its members (``parallel.halo.LocalMesh``, one
+thread a member). ``--mesh_spatial=N`` on the command line does the same.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from zsgnet_tpu_torch.data.dataset import _load_image_u8
 from zsgnet_tpu_torch.data.vocab import Vocab, tokenize
 from zsgnet_tpu_torch.models.quant import quant_scales, set_quant_mode
 from zsgnet_tpu_torch.models.zsgnet import ZSGNet, anchor_pyramid_for
+from zsgnet_tpu_torch.parallel.halo import LocalMesh
 from zsgnet_tpu_torch.train.checkpoint import CheckpointManager, find_sidecar, load_sidecar_cfg
 from zsgnet_tpu_torch.train.evaluator import decode_best_box
 from zsgnet_tpu_torch.utils.backend import resolve_device
@@ -61,14 +67,13 @@ BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
 LATENCY_BATCH_MAX = 16
 
 
-def unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: see ROADMAP.md {item}")
-
-
-def check_servable(cfg: Config) -> None:
-    """Raise for the serving options this port does not run yet."""
-    if cfg.mesh_spatial > 1:
-        raise unported(f"mesh_spatial={cfg.mesh_spatial}", "queue 1 item 4 (spatial partitioning)")
+def check_servable(cfg: Config, mesh_spatial: int | None = None) -> None:
+    """Raise for a spatial split (``mesh_spatial``, default
+    ``cfg.mesh_spatial``) that the image height does not divide into, as the
+    JAX ``Grounder``'s height sharding refuses it."""
+    sp = cfg.mesh_spatial if mesh_spatial is None else mesh_spatial
+    if sp < 1 or cfg.resize_img[0] % sp:
+        raise ValueError(f"mesh_spatial={sp} must divide the image height {cfg.resize_img[0]}")
 
 
 def to_device(a: np.ndarray, device: torch.device) -> Tensor:
@@ -228,18 +233,31 @@ class Grounder(OpenVocabMixin):
     the weights on each device (a device may repeat), each device batch
     split into equal slices over them in order. ``batch_size`` and every
     bucket must divide over the replicas; ``ground_image`` takes the
-    per-pair path, since one image does not split."""
+    per-pair path, since one image does not split.
+
+    ``mesh_spatial`` S > 1 serves each slice with its image height split
+    over S members (the ``devices``, D·S of them, data-major; S copies of
+    ``device`` by default): buckets divide over the D groups only, so
+    bucket 1 serves at S = 2, its members all-gathering the height at the
+    reshard (``parallel.halo.LocalSpatial``). ``ground_image`` takes the
+    per-pair path. int8 calibrates on the unsharded model, and the members'
+    convs take its scales by the global input shape (``parallel.halo.conv_rows``)."""
 
     def __init__(
         self, cfg: Config, vocab: Vocab, state_dict: dict[str, Tensor],
         batch_size: int = 8, bucket_sizes: tuple[int, ...] | None = None,
         oov_slots: int = 0, glove_path: str | Path | None = None,
         device: str | torch.device = "cuda", quantize: bool = False, quant_percentile: float = 0.999,
-        devices: list | None = None,
+        devices: list | None = None, mesh_spatial: int = 1,
     ):
-        self.devices = [resolve_device(d) for d in devices] if devices else [resolve_device(device)]
+        self.spatial = int(mesh_spatial)
+        if not devices:
+            devices = [device] * self.spatial
+        self.devices = [resolve_device(d) for d in devices]
         self.device = self.devices[0]
-        check_servable(cfg)
+        check_servable(cfg, self.spatial)
+        if len(self.devices) % self.spatial:
+            raise ValueError(f"{len(self.devices)} devices do not form groups of mesh_spatial={self.spatial}")
         if batch_size <= LATENCY_BATCH_MAX and cfg.use_same_atb:
             cfg = cfg.replace(head_canvas=True)
         self.quantize = quantize or cfg.quant_mode == "int8"
@@ -254,7 +272,7 @@ class Grounder(OpenVocabMixin):
         self.cfg = cfg
         self.vocab = vocab
         self.bs = int(batch_size)
-        n_shard = len(self.devices)
+        n_shard = len(self.devices) // self.spatial  # buckets split over the data axis only
         if self.bs % n_shard:
             raise ValueError(f"batch_size={batch_size} must divide over the {n_shard}-device mesh")
         if bucket_sizes is None:
@@ -289,10 +307,11 @@ class Grounder(OpenVocabMixin):
         self.model.to(self.device).eval()
         self.anchors = torch.as_tensor(anchor_pyramid_for(cfg)).to(self.device)
         self._replicate()
+        self.local_mesh = LocalMesh(self.devices, self.spatial) if self.spatial > 1 else None
 
     def _replicate(self) -> None:
-        """The replicas of the other devices as copies of ``model`` (and
-        their anchors); none for one device."""
+        """The replicas of the other devices (or spatial members) as copies
+        of ``model`` (and their anchors); none for one device."""
         self.replicas = [(self.model, self.anchors)] + [
             (copy.deepcopy(self.model).to(d), self.anchors.to(d)) for d in self.devices[1:]
         ]
@@ -324,6 +343,7 @@ class Grounder(OpenVocabMixin):
         oov_slots: int = 0, glove_path: str | Path | None = None,
         device: str | torch.device = "cuda", quantize: bool = False,
         bucket_sizes: tuple[int, ...] | None = None, devices: list | None = None,
+        mesh_spatial: int = 1,
     ) -> "Grounder":
         """Serve the latest step of a checkpoint directory that the port's
         Learner (or ``convert``) wrote: the run's model directory or its
@@ -331,7 +351,8 @@ class Grounder(OpenVocabMixin):
         and ``vocab.json`` beside it unless given; ``cfg`` replaces the
         sidecar, ``cfg_overrides`` patches keys on top. A checkpoint with
         ``ema`` (``cfg.ema_decay > 0``) serves the EMA parameters with the
-        saved BatchNorm statistics."""
+        saved BatchNorm statistics. ``devices`` and ``mesh_spatial`` are as
+        for the constructor."""
         if not devices:
             device = resolve_device(device)
         if cfg is None:
@@ -349,7 +370,8 @@ class Grounder(OpenVocabMixin):
         payload = CheckpointManager(ckpt_dir).restore()
         state_dict = {**payload["model"], **payload.get("ema", {})}
         return cls(cfg, vocab, state_dict, batch_size, bucket_sizes, oov_slots=oov_slots,
-                   glove_path=glove_path, device=device, quantize=quantize, devices=devices)
+                   glove_path=glove_path, device=device, quantize=quantize, devices=devices,
+                   mesh_spatial=mesh_spatial)
 
     def warmup(self, multiquery: bool = False) -> None:
         """Run every shape bucket once now (and, with ``multiquery``, every
@@ -396,6 +418,8 @@ class Grounder(OpenVocabMixin):
         each runs its slice of the rows on its device, and the slices come
         back to the first device in order."""
         canvas = self.canvas_for(qvec.shape[0])
+        if self.local_mesh is not None:
+            return self._infer_spatial(img, qvec, qlens, canvas)
         n = len(self.replicas)
         rows = qvec.shape[0] // n
         boxes, scores = [], []
@@ -408,6 +432,30 @@ class Grounder(OpenVocabMixin):
             scores.append(torch.sigmoid(att.max(dim=-1).values).to(self.device))
         if n == 1:
             return boxes[0], scores[0]
+        return torch.cat(boxes), torch.cat(scores)
+
+    def _infer_spatial(self, img: Tensor, qvec: Tensor, qlens: Tensor, canvas) -> tuple[Tensor, Tensor]:
+        """``_infer`` over the spatial groups: group d takes slice d of the
+        rows, and its member s the s-th band of their image rows, on its own
+        device and thread. → the members' batch blocks in order (member 0's
+        rows where the group gathered a batch below S)."""
+        s = self.spatial
+        rows = qvec.shape[0] // self.local_mesh.data
+
+        def member(d: int, ctx) -> tuple[Tensor, Tensor]:
+            model, anchors = self.replicas[d * s + ctx.index]
+            sl = slice(d * rows, (d + 1) * rows)
+            dev = anchors.device
+            out = model(ctx.rows(img[sl]).to(dev), qvec[sl].to(dev), qlens[sl], canvas=canvas, spatial=ctx)
+            att = out["att_out"]
+            return (decode_best_box(att, out["bbx_out"], anchors).to(self.device),
+                    torch.sigmoid(att.max(dim=-1).values).to(self.device))
+
+        boxes, scores = [], []
+        for group in self.local_mesh.run(member):
+            parts = group if rows % s == 0 else group[:1]
+            boxes.extend(b for b, _ in parts)
+            scores.extend(sc for _, sc in parts)
         return torch.cat(boxes), torch.cat(scores)
 
     def _pad_to(self, k: int) -> int:
@@ -447,7 +495,7 @@ class Grounder(OpenVocabMixin):
         data-parallel Grounder runs instead."""
         if not queries:
             return []
-        if len(self.replicas) > 1:
+        if len(self.replicas) > 1:  # data parallel or spatial: per pair
             return self.ground([image] * len(queries), queries)
         self._ensure_vocab(queries)
         img, orig_hw = load_image(image, self.cfg.resize_img)
@@ -532,6 +580,7 @@ def main(argv: list[str] | None = None) -> None:
         oov_slots=int(overrides.pop("oov_slots", "0")),
         glove_path=overrides.pop("glove", None),
         device=overrides.pop("device", "cuda"),
+        mesh_spatial=int(overrides.pop("mesh_spatial", "1")),
     )
     csv_path = overrides.pop("csv", None)
     if csv_path is not None:

@@ -30,7 +30,7 @@ CLI:
     python -m zsgnet_tpu_torch.serve <ckpt_or_artifact_dir> [--port=8500]
         [--batch_size=8] [--window_ms=5] [--max_queue=N] [--host=127.0.0.1]
         [--warmup=false] [--oov_slots=N] [--glove=<file>] [--device=cuda]
-        [--quantize=true] [--data_parallel=true] [--key=val ...]
+        [--quantize=true] [--data_parallel=true] [--mesh_spatial=N] [--key=val ...]
 
 A directory holding ``export.json`` is served through
 ``export.ExportedGrounder`` (its batch size and buckets are the
@@ -44,7 +44,11 @@ type: a checkpoint through a ``Grounder`` with one replica per device, each
 device batch split over them; an artifact with whole device batches
 round-robin over the devices.
 
-Not ported yet (it raises, naming its ROADMAP item): ``--mesh_spatial``.
+``--mesh_spatial=N`` serves a checkpoint with each image's height split
+over N members (``Grounder(mesh_spatial=N)``) on every local device of the
+requested type, N to a group. With fewer than N devices the members share
+them (two on one card: exact, but not faster). An artifact directory is
+refused, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -66,7 +70,7 @@ import torch
 from zsgnet_tpu_torch.data.dataset import load_image_bytes_u8
 from zsgnet_tpu_torch.export import ExportedGrounder
 from zsgnet_tpu_torch.parallel.mesh import local_devices
-from zsgnet_tpu_torch.predict import Grounder, is_true, unported
+from zsgnet_tpu_torch.predict import Grounder, is_true
 from zsgnet_tpu_torch.utils.backend import resolve_device
 
 
@@ -280,11 +284,20 @@ def load_server_model(
     OOV capacity at export: ``cfg_overrides``, ``quantize`` and an
     ``oov_slots`` beyond its own are refused. ``data_parallel`` serves on
     every local device of ``device``'s type (``Grounder(devices=...)`` or
-    ``ExportedGrounder.load(data_parallel=True)``)."""
+    ``ExportedGrounder.load(data_parallel=True)``). ``mesh_spatial`` in
+    ``cfg_overrides`` (checkpoints only) serves spatially on every local
+    device, as the JAX daemon's ``(data, spatial)`` mesh does; members share
+    devices where there are fewer than ``mesh_spatial``."""
     device = resolve_device(device)
-    if int((cfg_overrides or {}).get("mesh_spatial", 1) or 1) > 1:
-        raise unported(f"mesh_spatial={cfg_overrides['mesh_spatial']}", "queue 1 item 4 (spatial partitioning)")
+    sp = int((cfg_overrides or {}).get("mesh_spatial", 1) or 1)
     if (Path(model_dir) / "export.json").exists():
+        if sp > 1:
+            raise ValueError(
+                "mesh_spatial serving needs a checkpoint dir — exported "
+                "torch.export artifacts are lowered per device and cannot "
+                "shard one sample; use --data_parallel for batch-level "
+                "multi-device artifact serving"
+            )
         if cfg_overrides or quantize:
             raise ValueError(f"an exported artifact serves as exported; cannot apply "
                              f"{dict(cfg_overrides or {}, **({'quantize': True} if quantize else {}))}")
@@ -294,10 +307,18 @@ def load_server_model(
             raise ValueError("this artifact has no OOV capacity — re-export with "
                              "--weights_as_args=true --oov_slots=N (v3)")
         return g
+    devices = local_devices(device) if data_parallel or sp > 1 else None
+    if sp > 1:
+        if len(devices) >= sp and len(devices) % sp:
+            raise ValueError(f"mesh_spatial={sp} does not divide the {len(devices)} devices; "
+                             "pick a divisor or set mesh_shape=(n,) explicitly")
+        if len(devices) < sp:
+            print(f"serve: mesh_spatial={sp} on {len(devices)} device(s) — the members share them", flush=True)
+            devices = [devices[i % len(devices)] for i in range(sp)]
     return Grounder.from_checkpoint(
         model_dir, batch_size=batch_size, cfg_overrides=cfg_overrides,
         oov_slots=oov_slots, glove_path=glove_path, device=device, quantize=quantize,
-        devices=local_devices(device) if data_parallel else None,
+        devices=devices, mesh_spatial=sp,
     )
 
 

@@ -43,9 +43,18 @@ and ``vocab.json`` beside them. It keeps the JAX Learner's semantics:
   checkpoints while the others wait at a barrier; a stop requested on any
   rank stops every rank at the same batch.
 
+* with ``cfg.mesh_spatial`` S > 1 the mesh is the 2-D ``(data, spatial)``
+  grid of ``parallel.mesh.make_mesh`` (one process per member, launched
+  with ``torch.distributed.run --nproc_per_node=D·S``): the loaders hold the
+  data index's shard, every member of a spatial group the same one, and
+  the steps run the halo step (``parallel/train_step.py``). Validation
+  gathers each rank's block of its shard, which in rank order is the
+  global batch. As in the JAX Learner the train step is built at first
+  use, so under ``spatial_mode='gspmd'`` a retina Learner validates and
+  only ``train_step`` raises.
+
 The loss is read back from the device every ``cfg.log_every`` steps, one
-interval late, so the loop never waits on the device for it. Not ported
-yet (it raises): ``mesh_spatial > 1``.
+interval late, so the loop never waits on the device for it.
 """
 
 from __future__ import annotations
@@ -66,9 +75,9 @@ from zsgnet_tpu_torch.data.embeddings import load_embedding_table
 from zsgnet_tpu_torch.models.bilstm import fold_lstm_bias_
 from zsgnet_tpu_torch.models.zsgnet import anchor_pyramid_for, get_default_net
 from zsgnet_tpu_torch.parallel import mesh as mesh_lib
+from zsgnet_tpu_torch.parallel.halo import group_spatial
 from zsgnet_tpu_torch.parallel.mesh import DataMesh
 from zsgnet_tpu_torch.parallel.train_step import (
-    check_supported,
     create_train_state,
     lr_schedule_scale,
     make_eval_step,
@@ -138,16 +147,20 @@ class _LateLosses:
 class Learner:
     def __init__(self, uid: str, data: DataWrap, cfg: Config, device: str | torch.device = "cuda",
                  mesh: DataMesh | None = None):
-        check_supported(cfg)
         self.device = resolve_device(device)
-        if mesh is None and cfg.do_dist and dist.is_available() and dist.is_initialized():
+        if mesh is None and (cfg.do_dist or cfg.mesh_spatial > 1) and dist.is_available() and dist.is_initialized():
             mesh = mesh_lib.make_mesh(cfg, self.device)
+        if cfg.mesh_spatial > 1 and (mesh is None or mesh.spatial != cfg.mesh_spatial):
+            raise RuntimeError(f"mesh_spatial={cfg.mesh_spatial} runs one process per member: launch "
+                               "python -m torch.distributed.run --nproc_per_node=D·S so that a process group "
+                               "is up, or pass its mesh=")
         self.mesh = mesh
+        self._spatial = group_spatial(mesh)
         self.is_main = mesh is None or mesh.rank == 0
-        world = mesh.world_size if mesh is not None else 1
-        if data.train_dl.num_shards != world:
+        shards = mesh.data_size if mesh is not None else 1
+        if data.train_dl.num_shards != shards:
             raise ValueError(f"the loaders hold 1/{data.train_dl.num_shards} of each batch but the data "
-                             f"mesh has {world} rank(s): get_data(cfg, shard_id=rank, num_shards=world)")
+                             f"mesh has {shards} data index(es): get_data(cfg, *parallel.mesh.data_shard(cfg))")
         self.uid = uid
         self.data = data
         if cfg.lr_schedule != "const" and cfg.lr_decay_steps == 0:
@@ -364,6 +377,9 @@ class Learner:
                     valid = (np.asarray(valid, dtype=bool)[:, None] & batch["pair_valid"]).reshape(-1)
                     cases = None if cases is None else np.asarray(cases).reshape(-1)
                     ids = None if ids is None else np.asarray(ids).reshape(-1)
+                if self._spatial is not None:  # the rows of this member's metrics
+                    cases, ids, valid = (None if a is None else self._spatial.slice_batch(np.asarray(a).reshape(-1))
+                                         for a in (cases, ids, valid))
                 if self.mesh is not None and self.mesh.world_size > 1:
                     ev, cases, ids, valid = self._gathered(ev, cases, ids, valid)
                 evaluator.update(ev, cases=cases, ids=ids, valid=valid)
