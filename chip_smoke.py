@@ -74,6 +74,15 @@ rank on its post-reshard block, held against their plain versions; (b)
 Grounder at buckets 1 and 16 in float32 and in int8; (c) ``serve.py --mesh_spatial=2``
 as a process answering requests; no kernel launch in (b) and (c). Gloo on
 one card: not a scaling figure.
+Phase 14, after phase 13, runs the headline benchmark's protocol:
+``zsgnet_tpu_torch.bench.run`` at B = 128 (3 + 100 calls each of bf16,
+int8, grouped 26 × 5 and grouped int8; no K1/K2/K3 launch), its bf16 boxes
+against ``Grounder._infer`` on the same model and batch, its grouped path
+against the flat path on each image tiled 5 times in float32, the share of
+int8 boxes with IoU ≥ 0.5 against bf16, then the measurement tools once
+each at their default sizes (``profile_bench``, ``bench_infer_ab``,
+``bench_grouped_train``, ``profile_train_step`` traced); the bench's row is
+printed on a line of its own.
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after. Every phase is fatal on failure. The
 next-to-last line of standard output is a JSON object describing each
@@ -103,6 +112,8 @@ import numpy as np
 import pandas as pd
 import torch
 
+from zsgnet_tpu_torch.utils.profiling import device_kernels
+
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12   # float32 outside the tensor cores
 H100_BF16_OPS_PER_S = 989e12  # bf16 tensor cores, dense
@@ -124,35 +135,6 @@ SEED = 0
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def device_kernels(fn, iters: int) -> list[tuple[str, float, float]]:
-    """(kernel name, device ms per call, launches per call) of ``fn``, from
-    torch.profiler's CUDA activity, largest first."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    rows: list = []
-    for _ in range(3):  # the profiler now and then returns a window without its device events
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        # User annotations on the device timeline (Optimizer.step#Adam.step)
-        # span kernels that are counted on their own; they carry the name of
-        # their host-side range, which no kernel has.
-        events = prof.key_averages()
-        host_names = {e.key for e in events if e.device_type == DeviceType.CPU}
-        rows = [
-            (e.key, getattr(e, "self_device_time_total", 0.0) / 1e3 / iters, e.count / iters)
-            for e in events
-            if e.device_type == DeviceType.CUDA and e.key not in host_names
-        ]
-        if rows:
-            break
-    return sorted(rows, key=lambda r: -r[1])
 
 
 def check_fused_loss(anchors_cthw: np.ndarray) -> dict:
@@ -2610,6 +2592,152 @@ def check_spatial(tmp: Path, run_dir: Path, smi: str) -> tuple[list[int], dict]:
     return launches, {res: v for res, v in sp_launches.items()}
 
 
+# ------------------------------------------------------------ phase 14
+
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "int8_qps", "int8_vs_baseline", "grouped_q5_qps",
+              "grouped_q5_vs_baseline", "grouped_q5_int8_qps", "grouped_q5_int8_vs_baseline")
+BENCH_PATHS = ("value", "int8", "grouped_q5", "grouped_q5_int8")
+
+
+def _kernel_counts() -> list[int]:
+    """Launches of K1, K2 and K3 since their counts were last set to 0."""
+    from zsgnet_tpu_torch.ops.cuda.fused_bottleneck import fused_bottleneck_infer
+
+    return [*_counts(), fused_bottleneck_infer.launches]
+
+
+def _zero_kernel_counts() -> None:
+    from zsgnet_tpu_torch.ops.cuda.fused_bottleneck import fused_bottleneck_infer
+
+    _zero_counts()
+    fused_bottleneck_infer.launches = 0
+
+
+def _top_anchors(model, img: torch.Tensor, qvec: torch.Tensor, qlens: torch.Tensor) -> torch.Tensor:
+    with torch.inference_mode():
+        return model(img, qvec, qlens)["att_out"].argmax(dim=-1)
+
+
+def _held_boxes(name: str, got: tuple, want: tuple, anchors: tuple, tol: float = 1e-4) -> dict:
+    """Scores within ``tol``, boxes within ``tol`` wherever both picked the
+    same anchor, and that on at least half the rows."""
+    same = anchors[0] == anchors[1]
+    d_box = (got[0] - want[0]).abs().amax(dim=-1)
+    d_score = float((got[1] - want[1]).abs().max())
+    d_same = float(d_box[same].max()) if bool(same.any()) else float("nan")
+    share = float(same.float().mean())
+    if share < 0.5 or d_score > tol or not d_same <= tol:
+        raise AssertionError(f"{name}: scores within {d_score:.3g}, boxes within {d_same:.3g} on the {share:.1%} "
+                             f"of rows with the same anchor (tolerance {tol})")
+    log(f"headline: {name}: scores within {d_score:.3g}, boxes within {d_same:.3g} on the {share:.1%} of "
+        f"{same.numel()} rows with the same anchor")
+    return {"score_max_abs_err": d_score, "box_max_abs_err": d_same, "same_anchor_share": share}
+
+
+def check_headline(smi: str) -> tuple[list[int], dict]:
+    """Phase 14, the headline benchmark's protocol on the card. ``bench.run``
+    at full width and the full protocol (B = 128, 3 + 100 calls on each of
+    bf16, int8, grouped 26 × 5 and grouped int8) with K1, K2 and K3 at 0
+    launches; the bench's flat bf16 boxes against ``Grounder._infer`` on the
+    same model and batch, and its grouped path against the flat path on each
+    image tiled 5 times in float32 (scores within 1e-4, boxes within 1e-4
+    where the anchor is the same); the share of int8 boxes with IoU ≥ 0.5
+    against bf16. Then each measurement tool once at its default size:
+    ``profile_bench`` (B = 64), ``bench_infer_ab`` (B = 128), no
+    K1/K2/K3 launch; ``bench_grouped_train`` (60 pairs, Q = 5) and
+    ``profile_train_step`` (B = 128, traced), K1 and K2 once a step. Returns
+    the bench's (K1, K2, K3) launches and the numbers."""
+    from zsgnet_tpu_torch import bench
+    from zsgnet_tpu_torch.data.vocab import Vocab
+    from zsgnet_tpu_torch.models.quant import set_quant_mode
+    from zsgnet_tpu_torch.models.zsgnet import ZSGNet
+    from zsgnet_tpu_torch.predict import Grounder
+    from zsgnet_tpu_torch.tools import bench_grouped_train, bench_infer_ab, profile_bench, profile_train_step
+
+    t_phase = time.perf_counter()
+    _zero_kernel_counts()
+    report: dict = {}
+    t0 = time.perf_counter()
+    row = bench.run(device="cuda", report=report)
+    launches = _kernel_counts()
+    t_run = time.perf_counter() - t0
+    if any(launches):
+        raise AssertionError(f"the headline bench launched (K1, K2, K3) {launches} times")
+    if tuple(row) != BENCH_KEYS or row["metric"] != "grounding_queries_per_sec_per_chip" or not all(
+            isinstance(row[k], float) and np.isfinite(row[k]) and row[k] > 0 for k in BENCH_KEYS if k not in (
+                "metric", "unit")):
+        raise AssertionError(f"headline row {row}")
+    log(f"headline: bench.run in {t_run:.1f} s on {smi}; K1, K2, K3 launches {launches}; its row:")
+    log(json.dumps(row))
+    numbers: dict = {"row": row, "seconds": t_run, "paths": {
+        k: {x: report[k][x] for x in ("qps", "wall_ms", "device_ms", "launches", "idle", "peak_bytes")}
+        for k in BENCH_PATHS}}
+    for k in BENCH_PATHS:
+        box, score = report[k]["out"]
+        if not (torch.isfinite(box).all() and torch.isfinite(score).all() and box.abs().max() <= 1.0):
+            raise AssertionError(f"headline {k}: boxes or scores out of range")
+
+    model, anchors, flat, grouped = report["model"], report["anchors"], report["flat"], report["grouped"]
+    set_quant_mode(model, "off")
+    g = Grounder(model.cfg.replace(quant_mode="off"), Vocab({f"w{i}": i for i in range(bench.VOCAB)}),
+                 model.state_dict(), batch_size=bench.BATCH, device="cuda")
+    if g.quantize or g.cfg.head_canvas or g.canvas_for(bench.BATCH) is not None:
+        raise AssertionError("the B = 128 Grounder does not serve bf16 through the per-level head")
+    box, score = report["value"]["out"]
+    with torch.inference_mode():
+        want = g._infer(flat["img"], flat["qvec"], flat["qlens"])
+    numbers["vs_grounder"] = _held_boxes(
+        "bf16 bench vs Grounder._infer", (box, torch.sigmoid(score)), want,
+        (_top_anchors(model, flat["img"], flat["qvec"], flat["qlens"]),
+         _top_anchors(g.model, flat["img"], flat["qvec"], flat["qlens"])))
+    del g
+
+    f32 = ZSGNet(model.cfg.replace(compute_dtype="float32", quant_mode="off"), bench.VOCAB)
+    f32.load_state_dict({k: v for k, v in model.state_dict().items() if "_absmax_" not in k})
+    f32 = f32.to(CUDA).eval()
+    n, q = grouped["qvec"].shape[:2]
+    tiled = (grouped["img"].repeat_interleave(q, dim=0), grouped["qvec"].reshape(n * q, -1),
+             grouped["qlens"].reshape(n * q))
+    numbers["grouped_vs_tiled_f32"] = _held_boxes(
+        "float32 grouped vs each image tiled 5 times",
+        bench.infer(f32, anchors, grouped["img"], grouped["qvec"], grouped["qlens"]),
+        bench.infer(f32, anchors, *tiled),
+        (_top_anchors(f32, grouped["img"], grouped["qvec"], grouped["qlens"]), _top_anchors(f32, *tiled)))
+    del f32
+
+    iou = _iou(report["int8"]["out"][0].cpu().numpy(), report["value"]["out"][0].cpu().numpy())
+    numbers["int8_iou_ge_0.5_share"] = float((iou >= 0.5).mean())
+    log(f"headline: int8 vs bf16 boxes on {len(iou)} pairs: IoU >= 0.5 for {numbers['int8_iou_ge_0.5_share']:.1%}, "
+        f"median IoU {float(np.median(iou)):.4f}")
+    del report, model
+
+    tools: dict = {}
+    for name, fn, train in (
+            ("profile_bench", lambda: profile_bench.bench(device="cuda"), False),
+            ("bench_infer_ab", lambda: bench_infer_ab.bench(device="cuda"), False),
+            ("bench_grouped_train", lambda: bench_grouped_train.bench(device="cuda"), True),
+            ("profile_train_step", lambda: profile_train_step.bench(device="cuda"), True)):
+        _zero_kernel_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        k1, k2, k3 = _kernel_counts()
+        if not (k3 == 0 and (k1 == k2 > 0 if train else k1 == k2 == 0)):
+            raise AssertionError(f"{name} launched (K1, K2, K3) {(k1, k2, k3)} times")
+        if name == "profile_train_step":
+            res = {**res, "top": [(k[:80], t, c) for k, t, c in res["top"][:10]]}
+        tools[name] = {**res, "seconds": time.perf_counter() - t0, "kernel_launches": [k1, k2, k3]}
+        log(f"headline: {name} in {tools[name]['seconds']:.1f} s on {smi}, (K1, K2, K3) launches {[k1, k2, k3]}; "
+            f"{json.dumps(res, default=str)}")
+        torch.cuda.empty_cache()
+    steps = 3 * (bench_grouped_train.WARMUP + bench_grouped_train.ITERS)
+    if tools["bench_grouped_train"]["kernel_launches"][0] != steps:
+        raise AssertionError(f"bench_grouped_train: K1 {tools['bench_grouped_train']['kernel_launches'][0]} times, "
+                             f"not once in each of {steps} steps")
+    numbers["tools"] = tools
+    log(f"headline phase passed in {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return launches, numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2761,15 +2889,22 @@ def main() -> int:
         # phase 12 and before phase 10.
         sp_serving_launches, sp_kernel_launches = check_spatial(Path(tmp), Path(tmp) / "run", smi)
 
+        # Phase 14: the headline benchmark's protocol (bench.run at B = 128,
+        # held against the Grounder and the tiled flat path) and the
+        # measurement tools, after phase 13 and before phase 10.
+        headline_launches, headline = check_headline(smi)
+
         # Phase 10, last: the serving formats (canvas head, int8, exported
         # artifacts) on phase 6's checkpoint. Its many profiler windows and
         # exports left the profiler without device events for phase 7's
         # bench when it ran before it.
         formats_launches = check_serving_formats(Path(tmp) / "run" / "models" / "smoke", root, smi)
-    for k, n, f, h, d, sps in zip((k1, k2, k3), serving_launches, formats_launches, host_launches, dp_launches,
-                                  sp_serving_launches):
+    for i, (k, n, f, h, d, sps, hb) in enumerate(zip((k1, k2, k3), serving_launches, formats_launches, host_launches,
+                                                     dp_launches, sp_serving_launches, headline_launches)):
         k["serving_launches"], k["serving_formats_launches"], k["host_data_launches"] = n, f, h
         k["data_parallel_serving_launches"], k["spatial_serving_launches"] = d, sps
+        k["headline_bench_launches"] = hb
+        k["measurement_tools_launches"] = {name: t["kernel_launches"][i] for name, t in headline["tools"].items()}
     for i, k in enumerate((k1, k2)):
         k["data_parallel_launches"] = {"nccl_world1": dp_kernel_launches["nccl_world1"][i],
                                        "gloo_world2_per_rank": [r[i] for r in dp_kernel_launches["gloo_per_rank"]]}

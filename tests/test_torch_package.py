@@ -85,6 +85,18 @@ def test_native_library_builds_from_the_ports_own_source():
     assert "libzsgimage.so" not in text.replace('f"libzsgimage-', "") and "Makefile" not in text
 
 
+BENCH_SOURCES = [PKG / "bench.py", *(PKG / "tools" / f"{m}.py" for m in
+                                      ("profile_bench", "bench_infer_ab", "bench_grouped_train", "profile_train_step"))]
+
+
+def test_source_scan_covers_the_bench_and_the_measurement_tools():
+    """The headline bench and its tools are scanned, and none of them loads
+    the root ``bench.py`` (the JAX bench)."""
+    assert set(BENCH_SOURCES) <= set(SOURCES)
+    for path in BENCH_SOURCES:
+        assert not re.search(r"^\s*(import|from)\s+bench\b", path.read_text(), re.M), path
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_name_no_jax(path):
@@ -110,6 +122,8 @@ def _entry_points():
     from zsgnet_tpu_torch.train.learner import Learner
     from zsgnet_tpu_torch.demo import demo
     from zsgnet_tpu_torch.viz import main as viz_main
+    from zsgnet_tpu_torch import bench as headline
+    from zsgnet_tpu_torch.tools import bench_grouped_train, bench_infer_ab, profile_bench, profile_train_step
 
     cfg = Config(resize_img=(64, 64), fpn_ch=16, head_ch=16, emb_dim=8, lstm_dim=8)
     anchors = anchor_pyramid_for(cfg)
@@ -132,6 +146,12 @@ def _entry_points():
         "ExportedGrounder.load": lambda: ExportedGrounder.load("no_such_dir"),
         "demo": lambda: demo("no_such_dir"),
         "viz.main": lambda: viz_main(["no_such_dir", "--csv=no_such.csv"]),
+        "bench.main": lambda: headline.main([]),
+        "bench.run": lambda: headline.run(cfg),
+        "profile_bench": lambda: profile_bench.bench(2, cfg=cfg),
+        "bench_infer_ab": lambda: bench_infer_ab.bench(2, cfg=cfg),
+        "bench_grouped_train": lambda: bench_grouped_train.bench(10, 5, cfg=cfg),
+        "profile_train_step": lambda: profile_train_step.bench(2, cfg=cfg),
     }
 
 
@@ -139,7 +159,8 @@ def _entry_points():
                                   "make_train_step", "Learner", "main_dist", "bench_bottleneck",
                                   "bench_loss", "Grounder.from_checkpoint", "load_server_model",
                                   "serve.main", "predict.main", "export.main", "ExportedGrounder.load",
-                                  "demo", "viz.main"])
+                                  "demo", "viz.main", "bench.main", "bench.run", "profile_bench",
+                                  "bench_infer_ab", "bench_grouped_train", "profile_train_step"])
 def test_entry_points_raise_without_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

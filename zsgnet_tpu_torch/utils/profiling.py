@@ -4,6 +4,8 @@
   machine with a card) CUDA activities, written as a Chrome trace;
 * :func:`time_fn` — steady-state seconds per call, closed by
   ``torch.cuda.synchronize`` when the card is in use;
+* :func:`device_kernels` — each CUDA kernel's time on the card and its
+  launches per call of a function, from ``torch.profiler``;
 * :class:`Timer` — accumulating host-side section timer (the loader's host
   ms per batch);
 * :func:`flops_estimate` — the JAX package's analytic forward FLOPs per
@@ -57,6 +59,36 @@ def time_fn(fn: Callable[..., Any], *args: Any, warmup: int = 3, iters: int = 10
         out = fn(*args)
     _sync()
     return (time.perf_counter() - t0) / iters, out
+
+
+def device_kernels(fn: Callable[[], Any], iters: int) -> list[tuple[str, float, float]]:
+    """(kernel name, device ms per call, launches per call) of ``fn()`` over
+    ``iters`` calls after one warm call, from torch.profiler's CUDA
+    activity, largest first. Needs a card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    rows: list = []
+    for _ in range(3):  # the profiler now and then returns a window without its device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        # User annotations on the device timeline (Optimizer.step#Adam.step)
+        # span kernels that are counted on their own; they carry the name of
+        # their host-side range, which no kernel has.
+        events = prof.key_averages()
+        host_names = {e.key for e in events if e.device_type == DeviceType.CPU}
+        rows = [
+            (e.key, getattr(e, "self_device_time_total", 0.0) / 1e3 / iters, e.count / iters)
+            for e in events
+            if e.device_type == DeviceType.CUDA and e.key not in host_names
+        ]
+        if rows:
+            break
+    return sorted(rows, key=lambda r: -r[1])
 
 
 class Timer:
