@@ -60,20 +60,24 @@ share of the step from the profiler (gloo on one card: not a scaling
 figure); (c) ``load_server_model(data_parallel=True)`` and a two-replica
 ``Grounder`` against the single-device one in float32, with no kernel
 launch.
-Phase 13, after phase 12, drives spatial partitioning on the one card: (a)
+Phase 13, after phase 12, drives spatial partitioning on the one card:
 ``torch.distributed.run --nproc_per_node=2`` on this script's
-``--sp-worker``: two gloo ranks sharing ``cuda:0`` with ``mesh_spatial=2``
-train retina at 600² and at 300² (3 float32 steps of B = 4, lr 1e-6, each
-rank half of every image's rows) against one process on the same batches
-(losses, ``num_pos``, the parameters and BatchNorm statistics after the
-steps, an eval step's loss and IoU), logging where the
-reshard landed, each rank's peak memory against the one process's and the
-time under ``sp::halo`` and ``sp::reshard``, with K1 and K2 once a step a
-rank on its post-reshard block, held against their plain versions; (b)
+``--sp-worker``: two gloo ranks sharing ``cuda:0`` with ``mesh_spatial=2``,
+each rank half of every image's rows, against one process on the same
+batches (losses, ``num_pos``, the parameters and BatchNorm statistics
+after the steps, an eval step's loss and IoU), logging where the reshard
+landed, each rank's peak memory against the one process's and the time
+under ``sp::halo`` and ``sp::reshard``, with K1 and K2 once a step a rank
+on its post-reshard block, held against their plain versions: (a) retina
+and (a′) SSD-VGG16, its VGG tower split by height, at 600² and at 300² (3
+float32 steps of B = 4, lr 1e-6); (a″) SSD-VGG16 at 600² and B = 1 (2
+steps; the members gather the one sample, each weighing its copy of the
+loss 1/2), and the retina Learner's validation at 600² and B = 1. (b)
 ``Grounder(mesh_spatial=2)`` on ``["cuda:0", "cuda:0"]`` against the plain
-Grounder at buckets 1 and 16 in float32 and in int8; (c) ``serve.py --mesh_spatial=2``
-as a process answering requests; no kernel launch in (b) and (c). Gloo on
-one card: not a scaling figure.
+Grounder at buckets 1 and 16 in float32 and in int8, and (b′) the same with
+phase 9's SSD-VGG16 checkpoint in float32; (c) ``serve.py --mesh_spatial=2``
+as a process answering requests; no kernel launch in (b), (b′) and (c).
+Gloo on one card: not a scaling figure.
 Phase 14, after phase 13, runs the headline benchmark's protocol:
 ``zsgnet_tpu_torch.bench.run`` at B = 128 (3 + 100 calls each of bf16,
 int8, grouped 26 × 5 and grouped int8; no K1/K2/K3 launch), its bf16 boxes
@@ -2027,7 +2031,7 @@ def _state_close(name: str, got: dict, want: dict, p0: dict) -> tuple[float, flo
     statistics within atol 1e-3, parameter updates (Adam) within relative L2
     0.25. → (largest statistic difference, update relative L2)."""
     stats = [k for k in want if "running_" in k]
-    bn = max(float((got[k].double() - want[k].double()).abs().max()) for k in stats)
+    bn = max((float((got[k].double() - want[k].double()).abs().max()) for k in stats), default=0.0)
     params = [k for k in want if want[k].is_floating_point() and k not in stats]
     d_got = torch.cat([(got[k].double() - p0[k].double()).ravel() for k in params])
     d_want = torch.cat([(want[k].double() - p0[k].double()).ravel() for k in params])
@@ -2208,21 +2212,30 @@ SP_SIZES = (600, 300)  # the reference's larger config, then the default
 SP_STEPS = 3  # float32 steps of global B = 4 at lr 1e-6
 SP_BATCH = 4
 SP_VOCAB = 1000
+# (a) and (a′): (model, size, global batch, steps) on the two ranks, each
+# against one process; (a″): SSD-VGG16 at one sample (the members gather it).
+SP_CASES = tuple((mdl, res, SP_BATCH, SP_STEPS) for mdl in ("retina", "ssd_vgg") for res in SP_SIZES) + (
+    ("ssd_vgg", 600, 1, 2),)
+SP_EVAL_B1 = 600  # (a″): the retina Learner's evaluation at B = 1, at this size
 
 
-def _sp_cfg(res: int):
+def _sp_cfg(res: int, mdl: str = "retina", bs: int = SP_BATCH):
     from zsgnet_tpu_torch.config import get_default_cfg
 
-    return get_default_cfg().replace(resize_img=(res, res), bs=SP_BATCH, compute_dtype="float32", lr=1e-6,
-                                     mesh_spatial=2, seed=SEED)
+    return get_default_cfg().replace(resize_img=(res, res), bs=bs, compute_dtype="float32", lr=1e-6,
+                                     mesh_spatial=2, seed=SEED, mdl_to_use=mdl)
 
 
-def _sp_batches(cfg) -> list[dict]:
-    """SP_STEPS global batches at ``cfg``'s size, from the seed: uint8
+def _sp_tag(mdl: str, res: int, bs: int) -> str:
+    return f"{mdl}_{res}_b{bs}"
+
+
+def _sp_batches(cfg, steps: int = SP_STEPS) -> list[dict]:
+    """``steps`` global batches at ``cfg``'s size, from the seed: uint8
     images, queries of 3–11 tokens, one box each."""
     h, w = cfg.resize_img
     out = []
-    for i in range(SP_STEPS):
+    for i in range(steps):
         rng = np.random.default_rng((SEED, h, i))
         b, t = cfg.bs, cfg.max_qlen
         qlens = rng.integers(3, min(12, t + 1), size=(b,)).astype(np.int32)
@@ -2232,6 +2245,12 @@ def _sp_batches(cfg) -> list[dict]:
         out.append({"img": rng.integers(0, 256, size=(b, h, w, 3)).astype(np.uint8), "qvec": qvec.astype(np.int32),
                     "qlens": qlens, "annot": annot.astype(np.float32)})
     return out
+
+
+def _sp_learner_cfg(data_dir: str, tmp: Path, spatial: int):
+    """(a″)'s Learner: retina at SP_EVAL_B1², B = 1, float32, on phase 6's data."""
+    return _sp_cfg(SP_EVAL_B1, "retina", 1).replace(ds_to_use="synthetic", data_dir=data_dir,
+                                                    tmp_path=str(tmp / f"sp_learn_{spatial}"), mesh_spatial=spatial)
 
 
 def _label_ms(prof, name: str) -> dict:
@@ -2246,82 +2265,126 @@ def _label_ms(prof, name: str) -> dict:
             "device_ms": sum(e.device_time_total for e in ev) / 1e3}
 
 
-def _sp_gloo_worker(args: dict) -> None:
-    """Phase 13a, one of two gloo ranks sharing ``cuda:0`` under
-    ``mesh_spatial=2``: for each of SP_SIZES, SP_STEPS float32 train steps of
-    the global batch (each rank its half of the image rows), an eval step
-    on the first batch, where the reshard landed, the peak memory, the time under ``sp::halo`` and
-    ``sp::reshard`` in a profiled step, and K1 and K2 held against their
-    plain versions on the rank's post-reshard block; each size's results go
-    to ``<out>/sp_<size>_rank<r>.json``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from zsgnet_tpu_torch.models.zsgnet import anchor_pyramid_for, get_default_net
-    from zsgnet_tpu_torch.parallel.mesh import init_distributed, make_mesh
-    from zsgnet_tpu_torch.parallel.train_step import (
-        create_train_state, make_eval_step, make_train_step, member_block, pairs_and_weights, to_device,
-    )
-
-    world = init_distributed("cuda:0", backend="gloo")
-    for res in SP_SIZES:
-        cfg = _sp_cfg(res)
-        mesh = make_mesh(cfg, world.device)
-        batches = _sp_batches(cfg)
-        model = get_default_net(cfg, SP_VOCAB, seed=SEED, device=mesh.device)
-        state = create_train_state(cfg, model)
-        anchors = anchor_pyramid_for(cfg)
-        step = make_train_step(cfg, anchors, mesh.device, mesh)
+def _peak_without_cudnn(step, state, batch) -> int:
+    """Bytes one warm train step allocates above what was allocated before
+    it, with cuDNN off: the activations without the convolutions' workspace,
+    which cuDNN sizes by its own choice of algorithm per shape (at 300² it
+    can dwarf the activations of a float32 SSD-VGG16 step)."""
+    torch.backends.cudnn.enabled = False
+    try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        _zero_counts()
-        losses = []
-        t0 = time.perf_counter()
-        for b in batches:
-            state, ls = step(state, b)
-            losses.append({k: float(v) for k, v in ls.items()})
+        step(state, batch)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches, peak = _counts(), torch.cuda.max_memory_allocated()
-        # The state after the SP_STEPS steps, before the eval and timed steps.
-        torch.save({k: v.cpu() for k, v in model.state_dict().items()},
-                   Path(args["out"]) / f"sp_{res}_state_rank{mesh.rank}.pt")
-        _zero_counts()
-        ev = make_eval_step(cfg, anchors, mesh.device, mesh)(model, dict(batches[0], valid=np.ones(cfg.bs, bool)))
+        return torch.cuda.max_memory_allocated() - base
+    finally:
+        torch.backends.cudnn.enabled = True
+
+
+def _sp_rank_case(world, mdl: str, res: int, bs: int, steps: int, out_dir: Path) -> None:
+    """One SP_CASES case on this rank: ``steps`` float32 train steps of the
+    global batch (each rank its half of the image rows), an eval step on the
+    first batch, where the reshard (or gather) landed, the peak memory, the
+    time under ``sp::halo`` and ``sp::reshard`` in a profiled step, and K1
+    and K2 held against their plain versions on the rank's post-reshard
+    block (the whole batch, weighted 1/S, where it gathered); the results
+    go to ``<out>/sp_<tag>_rank<r>.json`` and the state after the steps to
+    ``<out>/sp_<tag>_state_rank<r>.pt``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zsgnet_tpu_torch.models.zsgnet import anchor_pyramid_for, get_default_net
+    from zsgnet_tpu_torch.parallel.mesh import make_mesh
+    from zsgnet_tpu_torch.parallel.train_step import (
+        create_train_state, make_eval_step, make_train_step, member_pairs, to_device,
+    )
+
+    cfg = _sp_cfg(res, mdl, bs)
+    tag = _sp_tag(mdl, res, bs)
+    mesh = make_mesh(cfg, world.device)
+    batches = _sp_batches(cfg, steps)
+    model = get_default_net(cfg, SP_VOCAB, seed=SEED, device=mesh.device)
+    state = create_train_state(cfg, model)
+    anchors = anchor_pyramid_for(cfg)
+    step = make_train_step(cfg, anchors, mesh.device, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _zero_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for b in batches:
+        state, ls = step(state, b)
+        losses.append({k: float(v) for k, v in ls.items()})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, peak = _counts(), torch.cuda.max_memory_allocated()
+    # The state after the steps, before the eval and timed steps.
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, out_dir / f"sp_{tag}_state_rank{mesh.rank}.pt")
+    _zero_counts()
+    ev = make_eval_step(cfg, anchors, mesh.device, mesh)(model, dict(batches[0], valid=np.ones(cfg.bs, bool)))
+    torch.cuda.synchronize()
+    eval_launches = _counts()
+    times = []
+    for _ in range(2):
         torch.cuda.synchronize()
-        eval_launches = _counts()
-        times = []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            step(state, batches[0])
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t1) * 1e3)
         t1 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step(state, batches[0])
-            torch.cuda.synchronize()
-        profiled_ms = (time.perf_counter() - t1) * 1e3
-        labels = {name: _label_ms(prof, name) for name in ("sp::halo", "sp::reshard", "dp::all_reduce")}
-        sp = step.spatial
-        d = to_device(dict(batches[0], img=sp.rows(batches[0]["img"])), mesh.device)
-        with torch.no_grad():
-            out = model.eval()(d["img"], d["qvec"], d["qlens"], spatial=sp)
-        annot, w = pairs_and_weights(member_block(sp, d))
-        w = torch.ones(annot.shape[0], device=mesh.device) if w is None else w
-        errs = hold_loss_kernels(f"rank {mesh.rank} of 2 (gloo, cuda:0, mesh_spatial=2) at {res}²", cfg, out,
-                                 annot, w, anchors)
-        (Path(args["out"]) / f"sp_{res}_rank{mesh.rank}.json").write_text(json.dumps({
-            "rank": mesh.rank, "res": res, "backend": mesh.backend, "device": str(mesh.device),
-            "mesh": [mesh.data_size, mesh.spatial, mesh.spatial_index], "losses": losses, "launches": launches,
-            "eval_launches": eval_launches, "eval_loss": float(ev["loss"][0]), "eval_iou": ev["iou"].tolist(),
-            "landed": {k: list(v) for k, v in sp.landed.items()}, "peak_bytes": peak, "base_bytes": base,
-            "steps_s": wall,
-            "step_ms": statistics.median(times), "profiled_step_ms": profiled_ms, "labels": labels,
-            "k1_err": errs[0], "k2_err": errs[1],
-            "block_rows": int(annot.shape[0])}))
-        del model, state, step, out
-        torch.cuda.empty_cache()
+        step(state, batches[0])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    no_cudnn = _peak_without_cudnn(step, state, batches[0])
+    t1 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batches[0])
+        torch.cuda.synchronize()
+    profiled_ms = (time.perf_counter() - t1) * 1e3
+    labels = {name: _label_ms(prof, name) for name in ("sp::halo", "sp::reshard", "dp::all_reduce")}
+    sp = step.spatial
+    d = to_device(dict(batches[0], img=sp.rows(batches[0]["img"])), mesh.device)
+    with torch.no_grad():
+        out = model.eval()(d["img"], d["qvec"], d["qlens"], spatial=sp)
+    annot, w = member_pairs(sp, d)
+    w = torch.ones(annot.shape[0], device=mesh.device) if w is None else w
+    errs = hold_loss_kernels(f"rank {mesh.rank} of 2 (gloo, cuda:0, mesh_spatial=2) {mdl} at {res}², B={bs}", cfg,
+                             out, annot, w, anchors)
+    (out_dir / f"sp_{tag}_rank{mesh.rank}.json").write_text(json.dumps({
+        "rank": mesh.rank, "mdl": mdl, "res": res, "bs": bs, "backend": mesh.backend, "device": str(mesh.device),
+        "mesh": [mesh.data_size, mesh.spatial, mesh.spatial_index], "losses": losses, "launches": launches,
+        "eval_launches": eval_launches, "eval_loss": float(ev["loss"][0]) if len(ev["loss"]) else None,
+        "eval_iou": ev["iou"].tolist(),
+        "landed": {k: list(v) for k, v in sp.landed.items()}, "peak_bytes": peak, "base_bytes": base,
+        "no_cudnn_step_bytes": no_cudnn, "steps_s": wall,
+        "step_ms": statistics.median(times), "profiled_step_ms": profiled_ms, "labels": labels,
+        "k1_err": errs[0], "k2_err": errs[1], "block_rows": int(annot.shape[0])}))
+    del model, state, step, out
+    torch.cuda.empty_cache()
+
+
+def _sp_gloo_worker(args: dict) -> None:
+    """Phase 13a, a′ and a″, one of two gloo ranks sharing ``cuda:0`` under
+    ``mesh_spatial=2``: every SP_CASES case (``_sp_rank_case``), then the
+    retina Learner's validation at B = 1 on phase 6's data (``<out>/
+    sp_learn_b1_rank<r>.json``)."""
+    from zsgnet_tpu_torch.data.dataset import get_data
+    from zsgnet_tpu_torch.parallel.mesh import data_shard, init_distributed, make_mesh
+    from zsgnet_tpu_torch.train.learner import Learner
+
+    world = init_distributed("cuda:0", backend="gloo")
+    out_dir = Path(args["out"])
+    for mdl, res, bs, steps in SP_CASES:
+        _sp_rank_case(world, mdl, res, bs, steps, out_dir)
+    cfg = _sp_learner_cfg(args["data"], out_dir, 2)
+    mesh = make_mesh(cfg, world.device)
+    learn = Learner("sp_eval_b1", get_data(cfg, *data_shard(cfg)), cfg, device=mesh.device, mesh=mesh)
+    _zero_counts()
+    t0 = time.perf_counter()
+    metrics = learn.validate()
+    torch.cuda.synchronize()
+    (out_dir / f"sp_learn_b1_rank{mesh.rank}.json").write_text(json.dumps({
+        "rank": mesh.rank, "metrics": metrics, "launches": _counts(), "s": time.perf_counter() - t0,
+        "batches": len(learn.data.valid_dl)}))
+    del learn
+    torch.cuda.empty_cache()
     torch.distributed.destroy_process_group()
 
 
@@ -2389,20 +2452,24 @@ class _Daemon:
 
 
 def check_spatial(tmp: Path, run_dir: Path, smi: str) -> tuple[list[int], dict]:
-    """Phase 13, spatial partitioning on the one card. (a) Two gloo ranks
+    """Phase 13, spatial partitioning on the one card. Two gloo ranks
     sharing ``cuda:0`` with ``mesh_spatial=2`` (``torch.distributed.run``
-    on this script's ``--sp-worker``) train retina at 600² and 300²,
-    SP_STEPS float32 steps of global B = 4 at lr 1e-6, against one process
-    on the same batches (losses rtol 1e-4, ``num_pos`` exact; each rank's
-    parameters and BatchNorm statistics after the steps by ``_state_close``);
-    each rank launches K1 and K2 once a step on its post-reshard block, and
-    holds them against their plain versions. (b) ``Grounder(mesh_spatial=2)``
-    on ``["cuda:0", "cuda:0"]`` against the plain Grounder on phase 6's
-    checkpoint in float32, buckets 1 and 16, and the int8 Grounders the
-    same way. (c) ``serve.py
-    --mesh_spatial=2`` as a process answers requests as the plain Grounder
-    does. Returns the (K1, K2, K3) launches of (b) and (c), and K1's and
-    K2's per rank and size in (a)."""
+    on this script's ``--sp-worker``) run every SP_CASES case: (a) retina
+    and (a′) SSD-VGG16 at 600² and 300², SP_STEPS float32 steps of global
+    B = 4 at lr 1e-6, and (a″) SSD-VGG16 at 600² and B = 1 (gathered), each
+    against one process on the same batches (losses rtol 1e-4, ``num_pos``
+    exact; each rank's parameters and BatchNorm statistics after the steps
+    by ``_state_close``; an eval step's loss and IoU rows); each rank
+    launches K1 and K2 once a step on its post-reshard block, and holds
+    them against their plain versions. (a″) also validates retina through
+    a Learner at 600² and B = 1 against one process's Learner. (b)
+    ``Grounder(mesh_spatial=2)`` on ``["cuda:0", "cuda:0"]`` against the
+    plain Grounder on phase 6's checkpoint in float32, buckets 1 and 16,
+    and the int8 Grounders the same way; (b′) the same on phase 9's
+    SSD-VGG16 checkpoint in float32. (c) ``serve.py --mesh_spatial=2`` as a
+    process answers requests as the plain Grounder does. Returns the (K1,
+    K2, K3) launches of (b), (b′) and (c), and K1's and K2's per rank and
+    case in (a), (a′) and (a″)."""
     from zsgnet_tpu_torch.models.quant import quant_scales
     from zsgnet_tpu_torch.models.zsgnet import anchor_pyramid_for, get_default_net
     from zsgnet_tpu_torch.ops.cuda.fused_bottleneck import fused_bottleneck_infer
@@ -2412,16 +2479,20 @@ def check_spatial(tmp: Path, run_dir: Path, smi: str) -> tuple[list[int], dict]:
 
     t_phase = time.perf_counter()
     numbers: dict = {"a": {}}
-    # (a) Two gloo ranks on cuda:0 under mesh_spatial=2 against one process.
+    # (a), (a′), (a″): two gloo ranks on cuda:0 under mesh_spatial=2 against one process.
     t0 = time.perf_counter()
-    out = _torchrun(2, "gloo", {"out": str(tmp)}, worker="--sp-worker")
+    out = _torchrun(2, "gloo", {"out": str(tmp), "data": str(tmp)}, timeout=900.0, worker="--sp-worker")
     t_a = time.perf_counter() - t0
-    ranks = [json.loads((tmp / f"sp_{res}_rank{r}.json").read_text()) for res in SP_SIZES for r in (0, 1)]
     staged = "staged through host memory" in out
     sp_launches = {}
-    for res in SP_SIZES:
-        cfg = _sp_cfg(res).replace(mesh_spatial=1)
-        batches = _sp_batches(cfg)
+    on = "cuda:0" if CUDA.type == "cuda" else "cpu"
+    for mdl, res, bs, steps in SP_CASES:
+        tag = _sp_tag(mdl, res, bs)
+        part = "a" if mdl == "retina" else ("a′" if bs % 2 == 0 else "a″")
+        gathered = bs % 2 != 0
+        rs = [json.loads((tmp / f"sp_{tag}_rank{r}.json").read_text()) for r in (0, 1)]
+        cfg = _sp_cfg(res, mdl, bs).replace(mesh_spatial=1)
+        batches = _sp_batches(cfg, steps)
         model = get_default_net(cfg, SP_VOCAB, seed=SEED, device=CUDA)
         p0 = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
         state = create_train_state(cfg, model)
@@ -2435,14 +2506,14 @@ def check_spatial(tmp: Path, run_dir: Path, smi: str) -> tuple[list[int], dict]:
             want.append({k: float(v) for k, v in ls.items()})
         torch.cuda.synchronize()
         peak_one = torch.cuda.max_memory_allocated()
-        # Each rank's parameters and BatchNorm statistics after the steps,
+        # Each rank's parameters (and BatchNorm statistics) after the steps,
         # against the one process's (the gradients' and moments' check).
         want_state = {k: v.cpu() for k, v in model.state_dict().items()}
         state_close = []
         for r in (0, 1):
-            f = tmp / f"sp_{res}_state_rank{r}.pt"
-            state_close.append(_state_close(f"{res}² rank {r} vs one process", torch.load(f, weights_only=True),
-                                            want_state, p0))
+            f = tmp / f"sp_{tag}_state_rank{r}.pt"
+            state_close.append(_state_close(f"{mdl} {res}² B={bs} rank {r} vs one process",
+                                            torch.load(f, weights_only=True), want_state, p0))
             f.unlink()
         del p0, want_state
         ev = make_eval_step(cfg, anchor_pyramid_for(cfg), CUDA)(model, dict(batches[0], valid=np.ones(cfg.bs, bool)))
@@ -2454,30 +2525,33 @@ def check_spatial(tmp: Path, run_dir: Path, smi: str) -> tuple[list[int], dict]:
             step(state, batches[0])
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t1) * 1e3)
+        no_cudnn_one = _peak_without_cudnn(step, state, batches[0])
         del model, state, step
         torch.cuda.empty_cache()
-        rs = sorted((r for r in ranks if r["res"] == res), key=lambda r: r["rank"])
         for r in rs:
-            on = "cuda:0" if CUDA.type == "cuda" else "cpu"
             if r["backend"] != "gloo" or r["device"] != on or r["mesh"] != [1, 2, r["rank"]] \
-                    or tuple(r["launches"]) != (SP_STEPS, SP_STEPS) or tuple(r["eval_launches"]) != (1, 0):
-                raise AssertionError(f"{res}² rank {r['rank']}: {r['backend']} on {r['device']}, mesh {r['mesh']}, "
+                    or tuple(r["launches"]) != (steps, steps) or tuple(r["eval_launches"]) != (1, 0):
+                raise AssertionError(f"{tag} rank {r['rank']}: {r['backend']} on {r['device']}, mesh {r['mesh']}, "
                                      f"(K1, K2) {r['launches']} in the steps, {r['eval_launches']} in the eval step")
-            half = SP_BATCH // 2
-            if not np.isclose(r["eval_loss"], ev_loss, rtol=1e-4, atol=0) or not np.allclose(
-                    r["eval_iou"], ev_iou[r["rank"] * half:(r["rank"] + 1) * half], rtol=0, atol=1e-4):
-                raise AssertionError(f"{res}² rank {r['rank']} eval step: loss {r['eval_loss']}, IoU {r['eval_iou']} "
-                                     f"vs one process {ev_loss}, {ev_iou} (its rows {r['rank'] * half}..)")
+            # The eval rows a rank answers for: its half, or, gathered, all on rank 0.
+            half = bs // 2
+            rows = (ev_iou if r["rank"] == 0 else []) if gathered else ev_iou[r["rank"] * half:(r["rank"] + 1) * half]
+            loss_ok = r["eval_loss"] is None if (gathered and r["rank"]) else np.isclose(
+                r["eval_loss"], ev_loss, rtol=1e-4, atol=0)
+            if not loss_ok or len(r["eval_iou"]) != len(rows) or not np.allclose(r["eval_iou"], rows, rtol=0,
+                                                                                 atol=1e-4):
+                raise AssertionError(f"{tag} rank {r['rank']} eval step: loss {r['eval_loss']}, IoU {r['eval_iou']} "
+                                     f"vs one process {ev_loss}, its rows {rows}")
             for i, (g, w_) in enumerate(zip(r["losses"], want)):
                 if g["num_pos"] != w_["num_pos"] or not np.allclose([g[k] for k in ("total", "cls_ls", "box_ls")],
                                                                    [w_[k] for k in ("total", "cls_ls", "box_ls")],
                                                                    rtol=1e-4, atol=0):
-                    raise AssertionError(f"{res}² rank {r['rank']} step {i}: losses {g} vs one process {w_} (rtol 1e-4)")
+                    raise AssertionError(f"{tag} rank {r['rank']} step {i}: losses {g} vs one process {w_} (rtol 1e-4)")
         if rs[0]["landed"] != rs[1]["landed"]:
-            raise AssertionError(f"{res}²: the ranks resharded at {rs[0]['landed']} and {rs[1]['landed']}")
-        sp_launches[res] = [(r["launches"], r["eval_launches"]) for r in rs]
+            raise AssertionError(f"{tag}: the ranks resharded at {rs[0]['landed']} and {rs[1]['landed']}")
+        sp_launches[tag] = [(r["launches"], r["eval_launches"]) for r in rs]
         rel = max(abs(g["total"] - w_["total"]) / w_["total"] for r in rs for g, w_ in zip(r["losses"], want))
-        numbers["a"][res] = {
+        numbers["a"][tag] = {
             "landed": rs[0]["landed"], "loss_rel": rel, "num_pos": [w_["num_pos"] for w_ in want],
             "bn_max_diff": [bn for bn, _ in state_close], "update_rel_l2": [u for _, u in state_close],
             "peak_gib": [r["peak_bytes"] / 2**30 for r in rs], "peak_gib_one_process": peak_one / 2**30,
@@ -2485,20 +2559,28 @@ def check_spatial(tmp: Path, run_dir: Path, smi: str) -> tuple[list[int], dict]:
             # parent still holds earlier phases' tensors).
             "step_peak_gib": [(r["peak_bytes"] - r["base_bytes"]) / 2**30 for r in rs],
             "step_peak_gib_one_process": (peak_one - base_one) / 2**30,
+            "no_cudnn_step_gib": [r["no_cudnn_step_bytes"] / 2**30 for r in rs],
+            "no_cudnn_step_gib_one_process": no_cudnn_one / 2**30,
             "step_ms": [r["step_ms"] for r in rs], "step_ms_one_process": statistics.median(times),
             "labels": [r["labels"] for r in rs], "profiled_step_ms": [r["profiled_step_ms"] for r in rs],
             "label_share": [{k: v["host_ms"] / r["profiled_step_ms"] for k, v in r["labels"].items()} for r in rs],
             "k1_err": [r["k1_err"] for r in rs],
             "k2_err": [r["k2_err"] for r in rs], "block_rows": [r["block_rows"] for r in rs]}
-        n = numbers["a"][res]
-        log(f"spatial (a) {res}²: 2 gloo ranks sharing cuda:0, mesh (data 1, spatial 2), {SP_STEPS} float32 steps "
-            f"of B={SP_BATCH} == one process: losses within {rel:.2e} relative, num_pos {n['num_pos']} exact, "
+        n = numbers["a"][tag]
+        log(f"spatial ({part}) {mdl} {res}²: 2 gloo ranks sharing cuda:0, mesh (data 1, spatial 2), {steps} float32 "
+            f"steps of B={bs}{' (the members gather the one sample)' if gathered else ''} == one process: losses "
+            f"within {rel:.2e} relative, num_pos {n['num_pos']} exact, "
             f"BatchNorm statistics within {[f'{x:.2e}' for x in n['bn_max_diff']]} (atol 1e-3) and the parameter "
             f"updates within relative L2 {[f'{x:.3g}' for x in n['update_rel_l2']]} (0.25) per rank; the "
             f"reshard landed at {list(n['landed'])} (local input shapes {list(n['landed'].values())}); peak "
             f"memory a rank {[round(x, 3) for x in n['peak_gib']]} GiB vs one process "
             f"{n['peak_gib_one_process']:.3f} GiB, above what each held before the steps "
-            f"{[round(x, 3) for x in n['step_peak_gib']]} vs {n['step_peak_gib_one_process']:.3f} GiB; the eval step's loss and each rank's IoU == one process's "
+            f"{[round(x, 3) for x in n['step_peak_gib']]} vs {n['step_peak_gib_one_process']:.3f} GiB "
+            f"(ratio {[round(x / n['step_peak_gib_one_process'], 3) for x in n['step_peak_gib']]}), a warm step "
+            f"without cuDNN's workspace {[round(x, 3) for x in n['no_cudnn_step_gib']]} vs "
+            f"{n['no_cudnn_step_gib_one_process']:.3f} GiB (ratio "
+            f"{[round(x / n['no_cudnn_step_gib_one_process'], 3) for x in n['no_cudnn_step_gib']]}); the eval step's "
+            f"loss and each rank's IoU rows == one process's "
             f"(K1/K2 (1, 0) on it); K1/K2 (1, 1) per step per rank on its {n['block_rows']} "
             f"post-reshard rows, held on its outputs (max abs err K1 {n['k1_err']}, K2 {n['k2_err']}); step "
             f"{[round(x, 1) for x in n['step_ms']]} ms vs one process {n['step_ms_one_process']:.1f} ms; "
@@ -2506,6 +2588,32 @@ def check_spatial(tmp: Path, run_dir: Path, smi: str) -> tuple[list[int], dict]:
             f"{[round(x, 1) for x in n['profiled_step_ms']]} ms (calls, host ms, device ms, host share): "
             f"{[{k: (v['calls'], round(v['host_ms'], 2), round(v['device_ms'], 3), f'{sh[k]:.1%}') for k, v in lab.items()} for lab, sh in zip(n['labels'], n['label_share'])]}"
             f" on {smi} — gloo on one card, not a scaling figure")
+    # (a″) The retina Learner's validation at B = 1 (each spatial group gathers its sample).
+    from zsgnet_tpu_torch.data.dataset import get_data
+    from zsgnet_tpu_torch.train.learner import Learner
+
+    learned = [json.loads((tmp / f"sp_learn_b1_rank{r}.json").read_text()) for r in (0, 1)]
+    lcfg = _sp_learner_cfg(str(tmp), tmp, 1)
+    learn = Learner("sp_eval_b1_one", get_data(lcfg), lcfg, device=CUDA)
+    _zero_counts()
+    t1 = time.perf_counter()
+    lwant = learn.validate()
+    torch.cuda.synchronize()
+    one_s, one_launches, n_val = time.perf_counter() - t1, _counts(), len(learn.data.valid_dl)
+    del learn
+    torch.cuda.empty_cache()
+    for r in learned:
+        g = r["metrics"]
+        if any(g[k] != lwant[k] for k in ("Acc", "MaxPos", "num_samples")) or abs(g["MeanIoU"] - lwant["MeanIoU"]) > 1e-4 \
+                or not np.isclose(g["loss"], lwant["loss"], rtol=1e-4, atol=0) or tuple(r["launches"]) != (n_val, 0):
+            raise AssertionError(f"retina Learner validation at B=1, rank {r['rank']}: {g}, (K1, K2) {r['launches']} "
+                                 f"vs one process {lwant}, ({n_val}, 0)")
+    sp_launches["retina_learner_eval_b1"] = [(r["launches"],) for r in learned]
+    numbers["a"]["retina_learner_eval_b1"] = {"metrics": lwant, "rank_s": [r["s"] for r in learned], "one_s": one_s,
+                                              "batches": n_val, "one_process_launches": one_launches}
+    log(f"spatial (a″) retina Learner validation at {SP_EVAL_B1}², B=1 ({n_val} batches; each spatial group gathers "
+        f"its sample, rank 0 reports it) == one process: {lwant}; K1/K2 {learned[0]['launches']} per rank; "
+        f"{[round(r['s'], 2) for r in learned]} s a rank vs one process {one_s:.2f} s on {smi}")
     numbers["a"]["child_s"], numbers["a"]["gloo_staged"] = t_a, staged
     log(f"spatial (a): torchrun child {t_a:.1f} s; gloo staging through host memory logged: {staged}")
 
@@ -2554,6 +2662,33 @@ def check_spatial(tmp: Path, run_dir: Path, smi: str) -> tuple[list[int], dict]:
     q_sp.local_mesh.close()
     del q_one, q_sp
     numbers["b"] = {"score_err": errs, "ground_ms": lat, "int8_score_err": q_errs, "int8_scales": len(want_s)}
+    # (b′) SSD-VGG16 (phase 9's checkpoint): the split VGG tower in the spatial Grounder, float32.
+    ssd_dir = tmp / "ssd_run" / "models" / "ssd"
+    s_one = Grounder.from_checkpoint(ssd_dir, batch_size=BATCH, cfg_overrides=f32, device=CUDA)
+    s_sp = Grounder.from_checkpoint(ssd_dir, batch_size=BATCH, cfg_overrides=f32, devices=[CUDA, CUDA],
+                                    mesh_spatial=2)
+    if s_sp.cfg.mdl_to_use != "ssd_vgg":
+        raise AssertionError(f"phase 9's checkpoint serves {s_sp.cfg.mdl_to_use}")
+    ssd_errs, ssd_lat = {}, {}
+    for n_req in (1, BATCH):
+        got, want_r = s_sp.ground(paths[:n_req], queries[:n_req]), s_one.ground(paths[:n_req], queries[:n_req])
+        anchors = (_spatial_anchors(s_sp, paths[:n_req], queries[:n_req]),
+                   _best_anchors(s_one, paths[:n_req], queries[:n_req], s_one._pad_to(n_req)))
+        ssd_errs[n_req] = _held_results(f"SSD spatial Grounder bucket {n_req}", got, want_r, anchors)
+        ms = {"spatial": [], "plain": []}
+        for _ in range(3):
+            for name, g in (("spatial", s_sp), ("plain", s_one), ("plain", s_one), ("spatial", s_sp)):
+                t1 = time.perf_counter()
+                g.ground(paths[:n_req], queries[:n_req])
+                ms[name].append((time.perf_counter() - t1) * 1e3)
+        ssd_lat[n_req] = {k: statistics.median(v) for k, v in ms.items()}
+    s_sp.local_mesh.close()
+    del s_one, s_sp
+    numbers["b′"] = {"score_err": ssd_errs, "ground_ms": ssd_lat}
+    log(f"spatial (b′): Grounder(mesh_spatial=2) with SSD-VGG16 (phase 9's checkpoint, its VGG tower split by "
+        f"height) == the plain Grounder in float32, buckets 1 and {BATCH}: max score differences {ssd_errs} "
+        f"(scores and boxes 1e-4); ground ms in turns (medians) {ssd_lat} on {smi} — two members on one card, "
+        "not a scaling figure")
     log(f"spatial (b): Grounder(mesh_spatial=2) on cuda:0 twice == the plain Grounder in float32, buckets 1 and "
         f"{BATCH}: max score differences {errs}; ground ms in turns (medians) {lat} on {smi} — two members on "
         f"one card, not a scaling figure; int8 (batch_size {2 * BATCH}, buckets {BATCH} then 1): == the "
@@ -2589,7 +2724,7 @@ def check_spatial(tmp: Path, run_dir: Path, smi: str) -> tuple[list[int], dict]:
         f"{numbers['c']['max_score_err']:.2e}; "
         f"(K1, K2, K3) launches in (b) {launches} (the daemon's own process launches none: it has no loss)")
     log(f"spatial phase passed in {time.perf_counter() - t_phase:.1f} s on {smi}; numbers {json.dumps(numbers)}")
-    return launches, {res: v for res, v in sp_launches.items()}
+    return launches, sp_launches
 
 
 # ------------------------------------------------------------ phase 14
@@ -2884,9 +3019,10 @@ def main() -> int:
         # sharing the card, data-parallel serving), after phase 11.
         dp_launches, dp_kernel_launches = check_data_parallel(Path(tmp), Path(tmp) / "run", smi)
 
-        # Phase 13: spatial partitioning (two gloo ranks sharing the card at
-        # 600² and 300², the spatial Grounder, the spatial daemon), after
-        # phase 12 and before phase 10.
+        # Phase 13: spatial partitioning (two gloo ranks sharing the card:
+        # retina and SSD-VGG16 at 600² and 300², SSD-VGG16 and the retina
+        # Learner's validation at B = 1; the spatial Grounder with retina and
+        # SSD-VGG16, the spatial daemon), after phase 12 and before phase 10.
         sp_serving_launches, sp_kernel_launches = check_spatial(Path(tmp), Path(tmp) / "run", smi)
 
         # Phase 14: the headline benchmark's protocol (bench.run at B = 128,
@@ -2909,9 +3045,12 @@ def main() -> int:
         k["data_parallel_launches"] = {"nccl_world1": dp_kernel_launches["nccl_world1"][i],
                                        "gloo_world2_per_rank": [r[i] for r in dp_kernel_launches["gloo_per_rank"]]}
         k["spatial_launches_per_rank"] = {
-            f"{res}x{res}_{SP_STEPS}_steps_1_eval_batch": {"steps": [st[i] for st, _ in per_rank],
-                                                            "eval_batch": [evl[i] for _, evl in per_rank]}
-            for res, per_rank in sp_kernel_launches.items()}
+            f"{mdl}_{res}x{res}_B{bs}_{steps}_steps_1_eval_batch": {
+                "steps": [st[i] for st, _ in sp_kernel_launches[_sp_tag(mdl, res, bs)]],
+                "eval_batch": [evl[i] for _, evl in sp_kernel_launches[_sp_tag(mdl, res, bs)]]}
+            for mdl, res, bs, steps in SP_CASES}
+        k["spatial_launches_per_rank"][f"retina_learner_validation_{SP_EVAL_B1}x{SP_EVAL_B1}_B1"] = {
+            "eval_batches": [ev[i] for (ev,) in sp_kernel_launches["retina_learner_eval_b1"]]}
     log(f"every phase passed in {time.perf_counter() - t_start:.1f} s, the kernels' build included")
 
     print(smi, flush=True)

@@ -18,22 +18,37 @@ WORLD = 4
 VOCAB = 30
 STEPS = 2
 SEED = 13
-# Backbone-gradient cases: (mesh_spatial, image (H, W)); B = 4 images.
-GRAD_CASES = {"s4_64x32": (4, (64, 32)), "s2_64x64": (2, (64, 64))}
+# Backbone-gradient cases: (model, mesh_spatial, image (H, W), global batch).
+# SSD-VGG16 at S = 4 on two images gathers (B does not divide over the
+# members); at S = 2 on 80² under the (2, 2) mesh it reshards.
+GRAD_CASES = {
+    "s4_64x32": ("retina", 4, (64, 32), 4),
+    "s2_64x64": ("retina", 2, (64, 64), 4),
+    "ssd_s4_64x32_gathered": ("ssd_vgg", 4, (64, 32), 2),
+    "ssd_s2_80x80": ("ssd_vgg", 2, (80, 80), 4),
+}
 GRAD_B = 4
 # Train-step cases under the (data 2, spatial 2) mesh: config overrides and
-# the global batch (images).
+# the global batch (images). The SSD cases: two images a data index (one a
+# member after the reshard), one (gathered), and grouped under grad_accum=2
+# (each micro-batch one image a data index: gathered).
 STEP_CASES = {
     "sgd": (dict(opt_to_use="sgd"), 4),
     "adam_accum_grouped_remat": (dict(grad_accum=2, queries_per_img=2, remat_backbone=True), 8),
+    "ssd_sgd": (dict(mdl_to_use="ssd_vgg", opt_to_use="sgd"), 4),
+    "ssd_sgd_one_per_shard": (dict(mdl_to_use="ssd_vgg", opt_to_use="sgd"), 2),
+    "ssd_sgd_accum_grouped": (dict(mdl_to_use="ssd_vgg", opt_to_use="sgd", grad_accum=2, queries_per_img=2), 4),
 }
+# Learner validation at one sample per data index under the (2, 2) mesh
+# (global B = 2: gathered in every spatial group), by model.
+VALIDATE_B2 = ("retina", "ssd_vgg")
 TINY = dict(ds_to_use="synthetic", bs=4, nw=1, lr=1e-6, resize_img=(64, 64), max_qlen=8, lstm_dim=8,
             emb_dim=8, fpn_ch=16, head_ch=16, compute_dtype="float32", log_every=1, seed=3, epochs=1)
 
 
-def grad_input(hw: tuple[int, int]) -> np.ndarray:
-    """(GRAD_B, 3, H, W) float64 normal images, from the seed."""
-    return np.random.default_rng((SEED, *hw)).normal(size=(GRAD_B, 3, *hw))
+def grad_input(hw: tuple[int, int], b: int = GRAD_B) -> np.ndarray:
+    """(b, 3, H, W) float64 normal images, from the seed."""
+    return np.random.default_rng((SEED, *hw)).normal(size=(b, 3, *hw))
 
 
 def backbone(sd: dict, fpn_ch: int):
@@ -48,21 +63,40 @@ def backbone(sd: dict, fpn_ch: int):
     return enc.double().train(), fpn.double().train()
 
 
-def backbone_grads(sd: dict, fpn_ch: int, x: np.ndarray, sp=None) -> tuple[dict, float, dict]:
-    """Σ over the FPN outputs of Σ p², and its gradients by parameter name
-    (``encoder.*``/``fpn.*``), for images ``x`` — this member's rows of its
-    data index's images under ``sp``, whose outputs are its batch block."""
-    enc, fpn = backbone(sd, fpn_ch)
+def ssd_backbone(sd: dict):
+    """The port's SSD-VGG16 with the backbone weights of a ZSGNet state_dict
+    ``sd``, in float64."""
+    from zsgnet_tpu_torch.models.ssd_vgg import SSDVGG16
+
+    vgg = SSDVGG16()
+    vgg.load_state_dict({k[len("backbone."):]: v for k, v in sd.items() if k.startswith("backbone.")})
+    return vgg.double().train()
+
+
+def backbone_grads(sd: dict, fpn_ch: int, x: np.ndarray, sp=None, mdl: str = "retina") -> tuple[dict, float, dict]:
+    """Σ over the backbone's outputs (the FPN's, or SSD-VGG16's six maps)
+    of Σ p², and its gradients by parameter name (``encoder.*``/``fpn.*``,
+    or SSD-VGG16's own), for images ``x`` — this member's rows of its data
+    index's images under ``sp``, whose outputs are its batch block. Where
+    the group gathered the batch each member's copy of the sum weighs 1/S,
+    as the train step weighs its loss."""
     xt = torch.from_numpy(np.ascontiguousarray(x))
-    if sp is None:
-        outs = fpn(*enc(xt))
+    if mdl == "ssd_vgg":
+        vgg = ssd_backbone(sd)
+        outs, named = vgg(xt, sp), (("", vgg),)
     else:
-        feats, flags = enc(xt, sp)
-        outs = fpn(*feats, spatial=sp, shard_flags=flags)
+        enc, fpn = backbone(sd, fpn_ch)
+        if sp is None:
+            outs = fpn(*enc(xt))
+        else:
+            feats, flags = enc(xt, sp)
+            outs = fpn(*feats, spatial=sp, shard_flags=flags)
+        named = (("encoder.", enc), ("fpn.", fpn))
     loss = sum((p * p).sum() for p in outs)
+    if sp is not None and sp.gathers(x.shape[0]):
+        loss = loss / sp.size
     loss.backward()
-    grads = {f"{name}.{k}": p.grad.detach().clone() for name, m in (("encoder", enc), ("fpn", fpn))
-             for k, p in m.named_parameters()}
+    grads = {f"{name}{k}": p.grad.detach().clone() for name, m in named for k, p in m.named_parameters()}
     return grads, float(loss.detach()), {} if sp is None else dict(sp.landed)
 
 
@@ -109,16 +143,19 @@ def run_train_steps(cfg, init: dict, batches: list[dict], mesh=None) -> dict:
     return {"losses": losses, "state": {k: v.clone() for k, v in model.state_dict().items()}}
 
 
-def run_learner_validate(root: str, tmp: str, mesh=None, **kw) -> dict:
+def run_learner_validate(root: str, tmp: str, mesh=None, state: dict | None = None, **kw) -> dict:
     """A fresh Learner's validation summary (on ``mesh``'s data shard), its
-    weights (without a mesh) and what touching its ``train_step`` raised."""
+    weights (without a mesh) and what touching its ``train_step`` raised;
+    ``state`` replaces the Learner's seeded weights."""
     from zsgnet_tpu_torch.config import Config
     from zsgnet_tpu_torch.data.dataset import get_data
     from zsgnet_tpu_torch.train.learner import Learner
 
-    cfg = Config(**TINY, data_dir=root, tmp_path=tmp, **kw)
+    cfg = Config(**{**TINY, "data_dir": root, "tmp_path": tmp, **kw})
     shard = (mesh.data_index, mesh.data_size) if mesh is not None else (0, 1)
     learn = Learner("sp_validate", get_data(cfg, *shard), cfg, device="cpu", mesh=mesh)
+    if state is not None:
+        learn.model.load_state_dict(state)
     out = {"metrics": learn.validate(), "spatial": None if learn.mesh is None else learn.mesh.spatial,
            "state": learn.model.state_dict() if mesh is None else None, "train_step_error": None}
     try:
@@ -140,9 +177,10 @@ def _join(rank: int, world: int, store: str):
 def run_grads(rank: int, world: int, store: str, init: str, root: str, tmp: str, out: str) -> None:
     """Every GRAD_CASES case on the rank's rows, the gradients summed over
     the world; validation through a Learner on the (2, 2) mesh under
-    ``spatial_mode='gspmd'``; then the
-    refusals that need a group: an indivisible micro-batch and a mesh
-    larger than the world."""
+    ``spatial_mode='gspmd'``, and at one sample per data index for each of
+    VALIDATE_B2; then the refusals that need a group: retina training below
+    S, an indivisible micro-batch, SSD-VGG under ``spatial_mode='halo'`` and
+    a mesh larger than the world. ``init`` holds a state_dict per model."""
     import torch.distributed as dist
 
     from zsgnet_tpu_torch.config import Config
@@ -151,13 +189,13 @@ def run_grads(rank: int, world: int, store: str, init: str, root: str, tmp: str,
 
     _join(rank, world, store)
     try:
-        sd = torch.load(init, weights_only=True)
-        for case, (s, hw) in GRAD_CASES.items():
+        sds = torch.load(init, weights_only=True)
+        for case, (mdl, s, hw, b) in GRAD_CASES.items():
             mesh = make_mesh(Config(mesh_spatial=s, resize_img=hw), "cpu")
             sp = group_spatial(mesh)
-            n = GRAD_B // mesh.data_size
-            x = grad_input(hw)[mesh.data_index * n:(mesh.data_index + 1) * n]
-            grads, loss, landed = backbone_grads(sd, 16, sp.rows(x, dim=2), sp)
+            n = b // mesh.data_size
+            x = grad_input(hw, b)[mesh.data_index * n:(mesh.data_index + 1) * n]
+            grads, loss, landed = backbone_grads(sds[mdl], 16, sp.rows(x, dim=2), sp, mdl)
             all_reduce_sum_(list(grads.values()), mesh.group)
             torch.save({"grads": grads if rank == 0 else None, "loss": loss, "landed": landed,
                         "mesh": (mesh.data_size, mesh.spatial, mesh.data_index, mesh.spatial_index)},
@@ -166,8 +204,12 @@ def run_grads(rank: int, world: int, store: str, init: str, root: str, tmp: str,
         mesh = make_mesh(Config(**TINY, mesh_spatial=2), "cpu")
         torch.save(run_learner_validate(root, tmp, mesh, mesh_spatial=2, spatial_mode="gspmd"),
                    f"{out}/validate_rank{rank}.pt")
+        for mdl in VALIDATE_B2:
+            torch.save(run_learner_validate(root, tmp, mesh, state=sds[f"{mdl}_tiny"], mesh_spatial=2,
+                                            mdl_to_use=mdl, bs=2),
+                       f"{out}/validate_b2_{mdl}_rank{rank}.pt")
         errors = {}
-        for name, fn in _refusals(sd):
+        for name, fn in _refusals(sds["retina"]):
             try:
                 fn()
                 errors[name] = None
@@ -184,32 +226,45 @@ def _refusals(sd: dict):
     from zsgnet_tpu_torch.parallel.mesh import make_mesh
     from zsgnet_tpu_torch.parallel.train_step import create_train_state, make_train_step
 
-    def micro_batch():
-        cfg = step_cfg("sgd").replace(grad_accum=2, mesh_spatial=2)  # 4 / 2 data / 2 micro = 1 < S
+    def below_s(**kw):
+        cfg = step_cfg("sgd").replace(mesh_spatial=2, **kw)
         model = ZSGNet(cfg, VOCAB)
         model.load_state_dict(sd)
         step = make_train_step(cfg, anchor_pyramid_for(cfg), "cpu", make_mesh(cfg, "cpu"))
-        step(create_train_state(cfg, model), {k: v[:2] for k, v in global_batches(cfg)[0].items()})
+        n = cfg.bs // 2
+        step(create_train_state(cfg, model), {k: v[:n] for k, v in global_batches(cfg)[0].items()})
+
+    def ssd_halo():
+        from zsgnet_tpu_torch.parallel.halo import group_spatial
+
+        cfg = step_cfg("ssd_sgd").replace(mesh_spatial=2, spatial_mode="halo")
+        b = global_batches(cfg)[0]
+        sp = group_spatial(make_mesh(cfg, "cpu"))
+        ZSGNet(cfg, VOCAB).train()(torch.from_numpy(sp.rows(b["img"][:2])), torch.from_numpy(b["qvec"][:2]),
+                                   torch.from_numpy(b["qlens"][:2]), spatial=sp)
 
     return [
-        ("micro_batch", micro_batch),
+        ("micro_batch", lambda: below_s(grad_accum=2)),  # 4 / 2 data / 2 micro = 1 < S
+        ("below_s", lambda: below_s(bs=2)),  # 2 / 2 data = 1 < S
+        ("ssd_halo", ssd_halo),
         ("oversubscribed", lambda: make_mesh(Config(mesh_spatial=2, mesh_shape=(4,)), "cpu")),
         ("indivisible", lambda: make_mesh(Config(mesh_spatial=3), "cpu")),
     ]
 
 
 def run_steps(rank: int, world: int, store: str, init: str, out: str) -> None:
-    """Every STEP_CASES case under the (2, 2) mesh."""
+    """Every STEP_CASES case under the (2, 2) mesh; ``init`` holds a
+    state_dict per model."""
     import torch.distributed as dist
 
     from zsgnet_tpu_torch.parallel.mesh import make_mesh
 
     _join(rank, world, store)
     try:
-        sd = torch.load(init, weights_only=True)
+        sds = torch.load(init, weights_only=True)
         for case in STEP_CASES:
             cfg = step_cfg(case).replace(mesh_spatial=2)
-            res = run_train_steps(cfg, sd, global_batches(cfg), make_mesh(cfg, "cpu"))
+            res = run_train_steps(cfg, sds[cfg.mdl_to_use], global_batches(cfg), make_mesh(cfg, "cpu"))
             if rank:  # rank 0's state is the one compared; the others' must be its bytes
                 from _torch_mh_worker import fingerprint
 

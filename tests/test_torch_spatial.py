@@ -25,8 +25,25 @@ fails when it passes.
   within rtol 1e-5) and the JAX Learner's on its (4, 2) spatial mesh, on the
   same weights (Acc, MaxPos and num_samples exactly, MeanIoU and loss within
   rtol 1e-4: two frameworks' float32).
-* The JAX refusals: a micro-batch that does not divide over the members, a
-  mesh larger than the world, S not dividing the world.
+* SSD-VGG16 split by height (the port's counterpart of the JAX ``gspmd``
+  mode), in float64 with Σ p² over its six maps: at S = 4 on 64×32 with
+  two images (the batch does not divide over the members: every member
+  gathers at conv6, ``vgg.31``, and weighs its copy 1/S; the gather's
+  reduce-scatter backward gives the convolutions before it their
+  gradients) and at S = 2 on 80² under the (2, 2) mesh (pool4, ``vgg.23``,
+  reshards; the conv4_3 tap is resharded on its own). The gradients equal
+  one process and the JAX ``SSDVGG16`` under ``jax.jit`` with the height
+  sharded (``in_shardings``, GSPMD), within 1e-9 relative per leaf.
+* Validation at one sample per data index (global B = 2 on the (2, 2)
+  mesh: every spatial group gathers, member 0 reports the rows), retina and
+  SSD-VGG, equals one Learner (Acc, MaxPos and num_samples exactly, MeanIoU
+  and loss within rtol 1e-4) and the JAX Learner's GSPMD evaluation on a
+  (2, 2) mesh, on the same weights (Acc, MaxPos and num_samples exactly,
+  MeanIoU within atol 1e-4, loss within rtol 1e-4).
+* The JAX refusals: retina training at a per-member batch below S, a
+  micro-batch that does not divide over the members, SSD-VGG under
+  ``spatial_mode='halo'``, a mesh larger than the world, S not dividing the
+  world.
 """
 
 import shutil
@@ -44,15 +61,21 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 import _torch_sp_worker as W
 from _torch_port import cfg_pair, jax_variables
+from jax.sharding import NamedSharding
+
 from zsgnet_tpu.models.fpn import FPN as JFPN
 from zsgnet_tpu.models.resnet import ResNet50 as JResNet50
+from zsgnet_tpu.models import ssd_vgg as j_ssd_vgg
+from zsgnet_tpu.models.ssd_vgg import SSDVGG16 as JSSDVGG16
 from zsgnet_tpu.parallel.halo import SpatialCtx as JSpatialCtx
 from zsgnet_tpu.convert.torch_import import convert_zsgnet_checkpoint
 from zsgnet_tpu.data.dataset import get_data as j_get_data
 from zsgnet_tpu.train.learner import Learner as JLearner
 from zsgnet_tpu_torch import convert
 from zsgnet_tpu_torch.convert import state_dict_from_jax
+from zsgnet_tpu_torch.config import Config
 from zsgnet_tpu_torch.data import synthetic
+from zsgnet_tpu_torch.data.dataset import get_data
 
 torch.set_num_threads(1)
 DEADLINE_S = 300
@@ -69,8 +92,18 @@ class Cluster:
         variables["params"]["backbone"]["bn1"]["bias"][:32] = -3.0  # post-ReLU zeros, tied maxima
         self.variables = variables
         self.sd = state_dict_from_jax(variables, self.tcfg)
-        torch.save(self.sd, tmp / "init.pt")
+        jcfg_ssd, tcfg_ssd = cfg_pair(mdl_to_use="ssd_vgg")
+        self.variables_ssd = jax_variables(jcfg_ssd, W.VOCAB, seed=2)
         self.root = synthetic.generate(tmp / "data", n_train=8, n_val=10, n_test=4, img_size=64).parent
+        # The validation Learners' weights at the dataset's vocabulary.
+        n_vocab = len(get_data(Config(**W.TINY, data_dir=str(self.root), tmp_path=str(tmp))).vocab)
+        self.tiny = {}
+        inits = {"retina": self.sd, "ssd_vgg": state_dict_from_jax(self.variables_ssd, tcfg_ssd)}
+        for mdl in W.VALIDATE_B2:
+            jc, tc = cfg_pair(mdl_to_use=mdl)
+            self.tiny[mdl] = jax_variables(jc, n_vocab, seed=4)
+            inits[f"{mdl}_tiny"] = state_dict_from_jax(self.tiny[mdl], tc)
+        torch.save(inits, tmp / "init.pt")
         self.ctx = tmp_mp.start_processes(
             W.run_grads, args=(W.WORLD, str(tmp / "store"), str(tmp / "init.pt"), str(self.root),
                                str(tmp / "four"), str(self.out)),
@@ -144,23 +177,63 @@ def _jax_halo_grads(variables: dict, x_nchw: np.ndarray, s: int) -> dict:
             if "running_" not in k and "num_batches" not in k}
 
 
+class _Float64Jnp:
+    """``jax.numpy`` whose ``float32`` is float64: the JAX ``L2Norm``'s
+    float32 island in float64, as the port's ``L2Norm`` computes a float64
+    input."""
+
+    float32 = jnp.float64
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+def _jax_gspmd_ssd_grads(variables: dict, x_nchw: np.ndarray, s: int) -> dict:
+    """The JAX ``SSDVGG16`` gradients of Σ p² over its six maps under
+    ``jax.jit`` with the image height sharded over a (W/s, s) mesh (GSPMD),
+    in float64 (its ``L2Norm`` too), as port parameter names."""
+    mesh = Mesh(np.array(jax.devices()[:W.WORLD]).reshape(W.WORLD // s, s), ("data", "spatial"))
+    with jax.enable_x64(True), mock.patch.object(j_ssd_vgg, "jnp", _Float64Jnp()):
+        params = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), variables["params"]["backbone"])
+        vgg = JSSDVGG16(dtype=jnp.float64)
+
+        def loss(p, x):
+            return sum(jnp.sum(o ** 2) for o in vgg.apply({"params": p}, x))
+
+        g = jax.jit(jax.grad(loss), in_shardings=(NamedSharding(mesh, P()),
+                                                   NamedSharding(mesh, P("data", "spatial"))))(
+            params, jnp.asarray(x_nchw.transpose(0, 2, 3, 1)))
+        g = jax.tree.map(np.asarray, g)
+    with mock.patch.object(convert, "_t", lambda a: torch.from_numpy(np.array(a, dtype=np.float64))):
+        sd = convert.ssd_backbone_from_jax(g, prefix="")
+    return sd
+
+
 @pytest.mark.parametrize("case", list(W.GRAD_CASES))
 def test_height_sharded_backbone_grads_equal_one_process_fp64(cluster, case):
-    s, hw = W.GRAD_CASES[case]
-    x = W.grad_input(hw)
-    want, want_loss, _ = W.backbone_grads(cluster.sd, 16, x)
+    mdl, s, hw, b = W.GRAD_CASES[case]
+    x = W.grad_input(hw, b)
+    sd = cluster.sd if mdl == "retina" else state_dict_from_jax(cluster.variables_ssd, cfg_pair(mdl_to_use=mdl)[1])
+    want, want_loss, _ = W.backbone_grads(sd, 16, x, mdl=mdl)
     r0 = cluster.result(case, 0)
     losses = [cluster.result(case, r)["loss"] for r in range(W.WORLD)]
     assert abs(sum(losses) - want_loss) <= REL * want_loss
     assert r0["mesh"] == (W.WORLD // s, s, 0, 0)
     landed = {"s4_64x32": {"layer4.0", "fpn.lat4", "fpn.lat3"},
-              "s2_64x64": {"fpn.p6", "fpn.out3", "fpn.out4", "fpn.out5"}}[case]
-    assert set(r0["landed"]) == landed, r0["landed"]
+              "s2_64x64": {"fpn.p6", "fpn.out3", "fpn.out4", "fpn.out5"},
+              "ssd_s4_64x32_gathered": {"conv4_3": (2, 512, 2, 4), "vgg.31": (2, 512, 1, 2)},
+              "ssd_s2_80x80": {"conv4_3": (2, 512, 5, 10), "vgg.23": (2, 512, 5, 10)}}[case]
+    assert (set(r0["landed"]) if isinstance(landed, set) else r0["landed"]) == landed, r0["landed"]
     got = r0["grads"]
     assert set(got) == set(want)
     for k in want:
         assert _rel(got[k], want[k]) < REL, (k, _rel(got[k], want[k]))
-    if s == 4:
+    if mdl == "ssd_vgg":
+        jax_g = _jax_gspmd_ssd_grads(cluster.variables_ssd, x, s)
+        assert set(jax_g) == set(want)
+        for k in want:
+            assert _rel(got[k], jax_g[k]) < REL, (k, _rel(got[k], jax_g[k]))
+    elif s == 4:
         jax_g = _jax_halo_grads(cluster.variables, x, s)
         assert set(jax_g) == set(want)
         for k in want:
@@ -170,8 +243,11 @@ def test_height_sharded_backbone_grads_equal_one_process_fp64(cluster, case):
 def test_spatial_refusals_keep_the_jax_words(cluster):
     for r in range(W.WORLD):
         e = cluster.result("errors", r)
-        assert e["micro_batch"] == ("ValueError: spatial reshard needs the per-member batch 1 divisible by "
-                                    "mesh_spatial=2 (raise cfg.bs or lower mesh_spatial)")
+        for name in ("micro_batch", "below_s"):
+            assert e[name] == ("ValueError: spatial reshard needs the per-member batch 1 divisible by "
+                               "mesh_spatial=2 (raise cfg.bs or lower mesh_spatial)"), name
+        assert e["ssd_halo"] == ("NotImplementedError: halo spatial partitioning is retina-only; ssd_vgg uses "
+                                 "the (measured-exact) GSPMD path")
         assert e["oversubscribed"] == "ValueError: mesh (data=4, spatial=2) needs 8 devices, have 4"
         assert e["indivisible"].startswith("ValueError: mesh_spatial=3 does not divide the 4 devices")
 
@@ -204,3 +280,34 @@ def test_spatial_validation_equals_one_process_and_jax(cluster, tmp_path):
         assert got[0]["metrics"][k] == jwant[k], k
     for k in ("MeanIoU", "loss"):
         np.testing.assert_allclose(got[0]["metrics"][k], jwant[k], rtol=1e-4, err_msg=k)
+
+
+def _jax_validate_variables(root, tmp, variables: dict, **kw) -> dict:
+    """The JAX Learner's validation on a (data 2, spatial 2) mesh (GSPMD
+    evaluation) with ``variables`` in its state."""
+    jcfg, _ = cfg_pair(**{**W.TINY, "data_dir": str(root), "tmp_path": str(tmp), "do_dist": True,
+                          "mesh_spatial": 2, "mesh_shape": (2,), **kw})
+    learn = JLearner("sp_validate_jax", j_get_data(jcfg), jcfg)
+    assert learn.mesh.devices.shape == (2, 2)
+    v = jax.tree.map(jnp.asarray, variables)
+    learn.state = learn.state.replace(params=v["params"], batch_stats=v.get("batch_stats", learn.state.batch_stats))
+    return learn.validate()
+
+
+@pytest.mark.parametrize("mdl", W.VALIDATE_B2)
+def test_spatial_validation_at_one_sample_per_data_shard_equals_one_process_and_jax(cluster, tmp_path, mdl):
+    """Global B = 2 on the (2, 2) mesh: each spatial group gathers its one
+    sample, which its member 0 alone reports."""
+    one = W.run_learner_validate(str(cluster.root), str(tmp_path / "one"), mdl_to_use=mdl, bs=2,
+                                 state=state_dict_from_jax(cluster.tiny[mdl], cfg_pair(mdl_to_use=mdl)[1]))
+    want = one["metrics"]
+    assert want["num_samples"] == 10
+    jwant = _jax_validate_variables(cluster.root, tmp_path / "jax", cluster.tiny[mdl], mdl_to_use=mdl, bs=2)
+    for r in range(W.WORLD):
+        g = cluster.result(f"validate_b2_{mdl}", r)
+        assert g["spatial"] == 2 and g["train_step_error"] is None
+        for ref in (want, jwant):
+            for k in ("Acc", "MaxPos", "num_samples"):
+                assert g["metrics"][k] == ref[k], (k, g["metrics"][k], ref[k])
+            np.testing.assert_allclose(g["metrics"]["MeanIoU"], ref["MeanIoU"], atol=1e-4, rtol=0)
+            np.testing.assert_allclose(g["metrics"]["loss"], ref["loss"], rtol=1e-4)

@@ -201,5 +201,5 @@ def test_spatial_training_refusals_keep_the_jax_words():
         check_supported(Config(mesh_spatial=2, spatial_mode="gspmd"))
     with pytest.raises(NotImplementedError, match="spatial_mode='halo' is implemented for retina only"):
         check_supported(Config(mesh_spatial=2, spatial_mode="halo", mdl_to_use="ssd_vgg"))
-    check_supported(Config(mesh_spatial=2, mdl_to_use="ssd_vgg"))  # auto: the port's reshard at the input
+    check_supported(Config(mesh_spatial=2, mdl_to_use="ssd_vgg"))  # auto: the VGG tower split by height
     check_supported(Config(mesh_spatial=2))

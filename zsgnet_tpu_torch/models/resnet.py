@@ -262,10 +262,9 @@ class ResNet50(nn.Module):
             x, sharded = spatial.reshard(x, "stem"), False
         x = conv_rows(self.conv1, x, spatial if sharded else None)
         x = self.relu(self.bn1(x, spatial))
-        plan = halo_plan(x.shape[2], 3, 2, 1) if sharded else None
-        if sharded and plan is None:
+        if sharded and halo_plan(x.shape[2], 3, 2, 1) is None:
             x, sharded = spatial.reshard(x, "maxpool"), False
-        x = max_pool_rows(spatial.halo(x, *plan, fill=float("-inf"))) if sharded else self.maxpool(x)
+        x = max_pool_rows(x, spatial) if sharded else self.maxpool(x)
         feats, flags = [], []
         for stage_i in range(4):
             for block_i, block in enumerate(getattr(self, f"layer{stage_i + 1}")):

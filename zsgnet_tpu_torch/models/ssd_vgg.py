@@ -18,6 +18,17 @@ narrower than 3 (small images), as :func:`ssd_feature_map_sizes` counts.
 ``quant_mode`` builds the VGG and extras convolutions through
 ``models.quant.conv_for``; the ``proj.<i>`` stay float, as in the JAX
 package.
+
+``forward(x, spatial=ctx)`` (``parallel.halo``, the port's counterpart of
+the JAX ``gspmd`` spatial mode) takes this member's rows of the image: the
+VGG tower runs split by height, every convolution and max pool taking its
+halo rows (``conv_rows``, ``max_pool_rows``; conv6's dilation widens its
+halo to 6 rows), until the first layer whose local height ``halo_plan``
+rejects, which is preceded by the reshard (or, for a batch that the group
+does not divide, the gather). ``L2Norm`` is channel-wise and runs on a
+shard unchanged. A source map still split when it leaves the tower (the
+conv4_3 tap, conv7) is resharded first, so the extras, whose adaptive
+padding reads the height, see whole maps.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from zsgnet_tpu_torch.models.quant import QuantConv2d, conv_for
+from zsgnet_tpu_torch.parallel.halo import conv_rows, halo_plan, max_pool_rows
 
 Tensor = torch.Tensor
 
@@ -70,16 +82,17 @@ def ssd_feature_map_sizes(img_size: Sequence[int]) -> tuple[tuple[int, int], ...
 
 class L2Norm(nn.Module):
     """Channelwise L2 normalization with a learned per-channel scale (init
-    20), in float32 whatever the input's type; returns the input's type."""
+    20), in float32 for 16- and 32-bit inputs (float64 for a float64 one);
+    returns the input's type."""
 
     def __init__(self, channels: int = 512, init_scale: float = 20.0):
         super().__init__()
         self.weight = nn.Parameter(torch.full((channels,), init_scale))
 
     def forward(self, x: Tensor) -> Tensor:
-        x32 = x.float()
-        norm = torch.sqrt((x32 * x32).sum(dim=1, keepdim=True) + 1e-10)
-        return (x32 / norm * self.weight.float()[None, :, None, None]).to(x.dtype)
+        xc = x.to(torch.promote_types(x.dtype, torch.float32))
+        norm = torch.sqrt((xc * xc).sum(dim=1, keepdim=True) + 1e-10)
+        return (xc / norm * self.weight.to(xc.dtype)[None, :, None, None]).to(x.dtype)
 
 
 class CeilMaxPool(nn.Module):
@@ -115,6 +128,34 @@ def _vgg_layers(quant_mode: str = "off") -> list[nn.Module]:
     return layers
 
 
+def _pool_geometry(layer: nn.Module) -> tuple[int, int, int]:
+    """(k, stride, pad) of a VGG max pool; the ceil-mode pool is 2×2/2."""
+    if isinstance(layer, CeilMaxPool):
+        return 2, 2, 0
+    return layer.kernel_size, layer.stride, layer.padding
+
+
+def _shardable(layer: nn.Module, h_local: int) -> bool:
+    """Whether a VGG layer runs on a height shard of ``h_local`` rows. The
+    ceil-mode pool needs an even local height, so the global height is even
+    and ceil equals floor."""
+    if isinstance(layer, nn.Conv2d):
+        return halo_plan(h_local, layer.kernel_size[0], layer.stride[0], layer.padding[0],
+                         layer.dilation[0]) is not None
+    if isinstance(layer, (nn.MaxPool2d, CeilMaxPool)):
+        return halo_plan(h_local, *_pool_geometry(layer)) is not None
+    return True  # ReLU
+
+
+def _on_rows(layer: nn.Module, x: Tensor, spatial) -> Tensor:
+    """A VGG layer on a height shard (the caller checked :func:`_shardable`)."""
+    if isinstance(layer, nn.Conv2d):
+        return conv_rows(layer, x, spatial)
+    if isinstance(layer, nn.MaxPool2d):
+        return max_pool_rows(x, spatial, *_pool_geometry(layer))
+    return layer(x)  # ReLU; the ceil-mode pool pads only the width on an even shard
+
+
 class SSDVGG16(nn.Module):
     """(B, 3, H, W) normalized image → 6 source maps, NCHW: native channels
     (``NATIVE_CHANNELS``), or ``out_ch`` each with ``uniform_proj``."""
@@ -135,12 +176,20 @@ class SSDVGG16(nn.Module):
         )
         self.channels = (out_ch,) * 6 if uniform_proj else NATIVE_CHANNELS
 
-    def forward(self, x: Tensor) -> tuple[Tensor, ...]:
+    def forward(self, x: Tensor, spatial=None) -> tuple[Tensor, ...]:
+        """Under ``spatial`` ``x`` is this member's rows and the maps are its
+        batch block (every member's whole batch where the group gathered)."""
+        sharded = spatial is not None
         sources = []
         for i, layer in enumerate(self.vgg):
-            x = layer(x)
+            if sharded and not _shardable(layer, x.shape[2]):
+                x, sharded = spatial.reshard(x, f"vgg.{i}"), False
+            x = _on_rows(layer, x, spatial) if sharded else layer(x)
             if i == CONV4_3:
-                sources.append(self.L2Norm(x))
+                src = self.L2Norm(x)
+                sources.append(spatial.reshard(src, "conv4_3") if sharded else src)
+        if sharded:
+            x = spatial.reshard(x, "conv7")
         sources.append(x)  # conv7
         for i, conv in enumerate(self.extras):
             if i in (5, 7):  # VALID 3×3, padding 1 below the kernel size

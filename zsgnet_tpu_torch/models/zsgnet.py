@@ -43,12 +43,12 @@ a data mesh) takes ResNet-50's training-mode BatchNorm moments over every
 rank of the process group.
 
 ``forward(..., spatial=ctx)`` (``parallel.halo``) takes this member's rows
-of the image (all B samples, H/S rows): ResNet-50 and the FPN exchange
-halos and reshard (``models/resnet.py``, ``models/fpn.py``), SSD-VGG
-reshards at its input, and the queries are sliced to the member's batch
-block after the visual stream, so every output carries that block (B/S
-rows; all B rows where a serving group gathered a batch below S). The head
-and its canvas run on it unchanged.
+of the image (all B samples, H/S rows): ResNet-50 and the FPN, or the
+SSD-VGG16 tower, exchange halos and reshard (``models/resnet.py``,
+``models/fpn.py``, ``models/ssd_vgg.py``), and the queries are sliced to
+the member's batch block after the visual stream, so every output carries
+that block (B/S rows; all B rows where the group gathered a batch that S
+does not divide). The head and its canvas run on it unchanged.
 
 ``cfg.compute_dtype == "bfloat16"`` runs the backbone and heads under
 ``torch.autocast`` on CUDA; the query encoder and the outputs stay float32.
@@ -197,9 +197,7 @@ class ZSGNet(nn.Module):
                 feats, flags = self.backbone["encoder"](x, spatial)
                 return self.backbone["fpn"](*feats, spatial=spatial, shard_flags=flags)
             return self.backbone["fpn"](*self.backbone["encoder"](x))
-        if spatial is not None:
-            x = spatial.reshard(x, "ssd_vgg input")
-        return self.backbone(x)
+        return self.backbone(x, spatial)
 
     @staticmethod
     def _to_pairs(f: Tensor, b: int) -> Tensor:

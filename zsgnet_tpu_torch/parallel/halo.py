@@ -18,18 +18,29 @@ in the numbers:
   full height, and the head, the loss and the optimizer run on those
   blocks unchanged. A ``(data, spatial)`` mesh is a ``(data·spatial,)``
   data mesh from there on, so losses, gradients and BatchNorm moments are
-  summed over every rank.
+  summed over every rank;
+* a batch that S does not divide (one sample per data index, as the JAX
+  GSPMD steps take it) is gathered instead: every member all-gathers the
+  height and carries the whole batch from there (:meth:`SpatialCtx.gathers`).
+  Its backward is a reduce-scatter, so the convolutions before the gather
+  get exact gradients; a loss after it weighs each member's copy 1/S
+  (``parallel/train_step.py``), so sums over the world count each sample
+  once.
+
+ResNet-50 and its FPN (``models/resnet.py``, ``models/fpn.py``) and
+SSD-VGG16 (``models/ssd_vgg.py``, the dilated conv6 and the max pools
+through :func:`conv_rows` and :func:`max_pool_rows`) run split this way.
 
 Two backends implement the one interface:
 
 * :class:`GroupSpatial`, a process group: one process per device, the
   spatial sub-group of the ``(data, spatial)`` grid of ranks
   (``parallel.mesh.make_mesh``), ``batch_isend_irecv`` for the halos and
-  ``all_to_all_single`` for the reshard. Training and the Learner's
-  evaluation run on it. Gloo moves only host tensors between processes, so
-  under gloo a device tensor is staged through host memory inside the
-  exchange (and 16-bit floats travel as int16 bits); under NCCL device
-  tensors go straight in.
+  ``all_to_all_single`` for the reshard and the gather. Training and the
+  Learner's evaluation run on it. Gloo moves only host tensors between
+  processes, so under gloo a device tensor is staged through host memory
+  inside the exchange (and 16-bit floats travel as int16 bits); under NCCL
+  device tensors go straight in.
 * :class:`LocalSpatial`, one process: S threads, one per member device,
   exchanging rows by device-to-device copies under a barrier. It is
   forward-only and serves the ``Grounder`` and ``serve.py``, as the JAX
@@ -57,11 +68,12 @@ from zsgnet_tpu_torch.models.quant import QuantConv2d
 Tensor = torch.Tensor
 
 
-def halo_plan(h_local: int, k: int, stride: int, pad: int) -> tuple[int, int] | None:
+def halo_plan(h_local: int, k: int, stride: int, pad: int, dilation: int = 1) -> tuple[int, int] | None:
     """Halo row counts (top, bottom) for a k/stride/pad height-conv on a
     shard of ``h_local`` rows — or None when the op cannot run sharded.
 
-    Output row j (global) reads input rows ``stride*j - pad ..
+    A dilated conv reads a window of ``d·(k−1)+1`` rows, its effective
+    kernel ``k``. Output row j (global) reads input rows ``stride*j - pad ..
     stride*j - pad + k - 1``; with contiguous equal shards the first
     owned output row needs ``pad`` rows from above and the last needs
     ``k - stride - pad`` from below (clamped at 0). Shardable iff the
@@ -69,6 +81,7 @@ def halo_plan(h_local: int, k: int, stride: int, pad: int) -> tuple[int, int] | 
     fit in ONE neighbor's rows, and the VALID conv over the halo-padded
     block reproduces exactly ``h_local/stride`` rows.
     """
+    k = dilation * (k - 1) + 1
     ht, hb = max(pad, 0), max(k - stride - pad, 0)
     if h_local % stride or h_local < max(ht, hb, 1):
         return None
@@ -88,8 +101,9 @@ def spatial_train_mode(cfg) -> str:
                 the backward — tests/test_spatial.py).
     Eval/serving always uses GSPMD (forward-only, exact for both).
 
-    The port has no GSPMD: its ``gspmd`` mode (SSD-VGG) reshards the image
-    at the backbone's input, which is exact and splits no activation.
+    The port has no GSPMD: its ``gspmd`` mode (SSD-VGG) splits the VGG
+    tower by rows with the halo exchanges of this module, up to the first
+    layer a shard cannot take (``models/ssd_vgg.py``).
     """
     if cfg.spatial_mode != "auto":
         return cfg.spatial_mode
@@ -119,17 +133,22 @@ def conv_rows(conv: torch.nn.Conv2d, x: Tensor, spatial: "SpatialCtx | None") ->
     if spatial is None:
         return conv(x)
     rows = x.shape[2] * spatial.size
-    x = spatial.halo(x, *halo_plan(x.shape[2], conv.kernel_size[0], conv.stride[0], conv.padding[0]))
+    x = spatial.halo(x, *halo_plan(x.shape[2], conv.kernel_size[0], conv.stride[0], conv.padding[0],
+                                   conv.dilation[0]))
     pad = (0, conv.padding[1])
     if isinstance(conv, QuantConv2d):
         return conv(x, padding=pad, rows=rows)
     return F.conv2d(x, conv.weight, conv.bias, conv.stride, pad, conv.dilation, conv.groups)
 
 
-def max_pool_rows(x: Tensor) -> Tensor:
-    """The stem's 3×3/2 maxpool over rows that carry their ``-inf`` halo;
-    the width is padded with ``-inf`` as ``nn.MaxPool2d(3, 2, 1)`` pads."""
-    return F.max_pool2d(x, 3, 2, padding=(0, 1))
+def max_pool_rows(x: Tensor, spatial: "SpatialCtx", k: int = 3, stride: int = 2, pad: int = 1) -> Tensor:
+    """A k/stride/pad max pool (default the stem's 3×3/2/1) on a height
+    shard: the rows :func:`halo_plan` gives, ``-inf`` at the ring ends, then
+    no height padding; the width is padded with ``-inf`` as
+    ``nn.MaxPool2d(k, stride, pad)`` pads. The caller checked that
+    :func:`halo_plan` admits the op."""
+    x = spatial.halo(x, *halo_plan(x.shape[2], k, stride, pad), fill=float("-inf"))
+    return F.max_pool2d(x, k, stride, padding=(0, pad))
 
 
 class SpatialCtx:
@@ -138,15 +157,32 @@ class SpatialCtx:
     of NCHW. ``bn_group`` is the process group of training-mode BatchNorm
     moments (every rank of both axes), None where nothing trains.
 
-    Subclasses move the rows: :meth:`_swap` and :meth:`_all_to_all`, and
-    :meth:`_all_gather` where a batch below ``size`` is served."""
+    Subclasses move the rows: :meth:`_swap` and :meth:`_all_to_all`."""
 
     size: int
     index: int
     bn_group: Any = None
-    gather_small_batches = False
-    # Where each reshard landed (the caller's label → the local input shape).
+    # Where each reshard or gather landed (the caller's label → the local
+    # input shape).
     landed: dict[str, tuple[int, ...]]
+
+    def gathers(self, b: int) -> bool:
+        """Whether a batch of ``b`` samples is gathered rather than split:
+        S does not divide it, so :meth:`reshard` gives every member the whole
+        batch at full height and :meth:`slice_batch` the whole batch."""
+        return b % self.size != 0
+
+    def counted(self, x, images: int):
+        """The rows of a per-sample result replicated over the group (a
+        tensor or an array, the batch first: per pair, pair-major, for a
+        grouped batch) that this member answers for, so that the group
+        counts each sample once: its block of a batch of ``images`` images
+        that splits, or, where the batch was gathered, every row on member 0
+        and none on the others."""
+        if not self.gathers(images):
+            sub = x.shape[0] // self.size
+            return x[self.index * sub:(self.index + 1) * sub]
+        return x if self.index == 0 else x[:0]
 
     def halo(self, x: Tensor, ht: int, hb: int, fill: float = 0.0) -> Tensor:
         """``ht`` rows from the member above and ``hb`` from the one below,
@@ -163,28 +199,22 @@ class SpatialCtx:
     def reshard(self, x: Tensor, where: str = "") -> Tensor:
         """Split the batch, gather the height, in one all-to-all: each member
         ends with its B/S block of samples at full height (the block
-        :meth:`slice_batch` takes). A serving group (``LocalSpatial``) with a
-        batch that does not divide instead gathers the whole height to every
-        member, which then carries the whole batch (see
-        :meth:`LocalSpatial._all_gather`)."""
+        :meth:`slice_batch` takes). A batch that does not divide
+        (:meth:`gathers`) is gathered instead: every member ends with the
+        whole batch at full height; in the backward each member gets the sum
+        over the group of its rows' gradients (a reduce-scatter)."""
         self.landed[where] = tuple(x.shape)
-        b = x.shape[0]
-        if b % self.size:
-            if not self.gather_small_batches:
-                raise reshard_batch_error(b, self.size)
-            with record_function("sp::reshard"):
-                return torch.cat(self._all_gather(x.contiguous()), dim=2)
+        if self.gathers(x.shape[0]):
+            return _Gather.apply(x, self)
         return _Reshard.apply(x, self)
 
     def slice_batch(self, x: Tensor) -> Tensor:
         """This member's batch block of a tensor replicated over the group —
-        the same block :meth:`reshard` keeps (the whole batch where a serving
-        group gathered it)."""
+        the same block :meth:`reshard` keeps (the whole batch where it
+        gathers)."""
         b = x.shape[0]
-        if b % self.size:
-            if self.gather_small_batches:
-                return x
-            raise ValueError(f"batch {b} not divisible by mesh_spatial={self.size}")
+        if self.gathers(b):
+            return x
         sub = b // self.size
         return x[self.index * sub:(self.index + 1) * sub]
 
@@ -210,9 +240,6 @@ class SpatialCtx:
     def _all_to_all(self, blocks: Tensor) -> Tensor:
         """``blocks`` (size, ...): block j goes to member j; → (size, ...)
         whose block i came from member i."""
-        raise NotImplementedError
-
-    def _all_gather(self, x: Tensor) -> list[Tensor]:
         raise NotImplementedError
 
 
@@ -271,6 +298,31 @@ class _Reshard(torch.autograd.Function):
         with record_function("sp::reshard"):
             got = sp._all_to_all(g.reshape(bs, c, s, hs // s, w).permute(2, 0, 1, 3, 4).contiguous())
         return got.reshape(s * bs, c, hs // s, w), None
+
+
+class _Gather(torch.autograd.Function):
+    """(B, C, h, W) height shard → (B, C, S·h, W), the whole batch at full
+    height on every member, by one all-to-all of S copies; the backward
+    sends each member its rows' gradient from every member and sums them in
+    member order (a reduce-scatter through the same all-to-all)."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, sp: SpatialCtx) -> Tensor:
+        s = sp.size
+        b, c, h, w = x.shape
+        ctx.sp = sp
+        with record_function("sp::reshard"):
+            got = sp._all_to_all(x.contiguous()[None].expand(s, b, c, h, w).contiguous())
+        return got.permute(1, 2, 0, 3, 4).reshape(b, c, s * h, w)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        sp = ctx.sp
+        s = sp.size
+        b, c, hs, w = g.shape
+        with record_function("sp::reshard"):
+            got = sp._all_to_all(g.reshape(b, c, s, hs // s, w).permute(2, 0, 1, 3, 4).contiguous())
+        return got.sum(dim=0), None
 
 
 class GroupSpatial(SpatialCtx):
@@ -360,12 +412,8 @@ class LocalSpatial(SpatialCtx):
     """A member of an in-process spatial group (backend (b)), run on one of
     the group's threads: ``device`` is its device (devices may repeat).
     Forward-only. A batch that does not divide over the group (bucket 1 at
-    S = 2) is not split: :meth:`reshard` all-gathers the height, so every
-    member carries the whole batch at full height and returns the same rows.
-    That is exact, and it is why serving takes batches that training (and
-    the JAX halo reshard) refuse."""
-
-    gather_small_batches = True
+    S = 2) is gathered (:meth:`SpatialCtx.gathers`): every member carries
+    the whole batch at full height and returns the same rows."""
 
     def __init__(self, shared: _LocalGroup, size: int, index: int, device: torch.device):
         self.shared, self.size, self.index, self.device = shared, size, index, device
@@ -381,9 +429,6 @@ class LocalSpatial(SpatialCtx):
     def _all_to_all(self, blocks):
         items = self.shared.exchange(self.index, blocks)
         return torch.stack([b[self.index].to(self.device) for b in items])
-
-    def _all_gather(self, x):
-        return [t.to(self.device) for t in self.shared.exchange(self.index, x)]
 
 
 class LocalMesh:

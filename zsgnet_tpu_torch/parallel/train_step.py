@@ -43,9 +43,18 @@ index's slice of the batch, the model exchanges halos and reshards
 to the member's batch block after the reshard. From there the step is the
 data-parallel one over every rank: the loss (K1 and K2 on the card) on the
 rank's block, normalized by the count over the world, gradients and losses
-summed over the world, BatchNorm moments over the world. Under
-``grad_accum=k`` each micro-batch must divide over the S members. SSD-VGG
-(the JAX ``gspmd`` mode) reshards at its input.
+summed over the world, BatchNorm moments over the world. SSD-VGG (the JAX
+``gspmd`` mode) splits its VGG tower the same way (``models/ssd_vgg.py``).
+
+A per-member batch (or, under ``grad_accum=k``, micro-batch) that S does
+not divide is gathered, as the JAX GSPMD steps take any per-data-shard
+batch: every member runs the rest of the model, the head and the loss on
+the whole batch, and its copy of the loss weighs 1/S (``sample_weight``),
+so the sums over the world (the positive count, the loss partials, the
+gradients after the gather) count each pair once; the gather's backward, a
+reduce-scatter, gives the convolutions before it their exact gradients.
+Retina keeps the JAX halo step's refusal of such a batch in training; its
+evaluation gathers.
 """
 
 from __future__ import annotations
@@ -165,8 +174,21 @@ def pairs_and_weights(b: dict[str, Tensor], valid: Tensor | None = None) -> tupl
 def member_block(sp, b: dict[str, Tensor]) -> dict[str, Tensor]:
     """The spatial member's batch block of the per-sample keys other than
     the image and the queries (which the model takes whole): the block its
-    model outputs carry after the reshard."""
+    model outputs carry after the reshard (the whole batch where it
+    gathered)."""
     return {k: v if k in ("img", "qvec", "qlens") else sp.slice_batch(v) for k, v in b.items()}
+
+
+def member_pairs(sp, b: dict[str, Tensor], weigh_valid: bool = False) -> tuple[Tensor, Tensor | None]:
+    """:func:`pairs_and_weights` of the member's block (:func:`member_block`),
+    times its ``valid`` with ``weigh_valid``. Where the group gathered the
+    batch every member carries all of it, so each copy's weights are 1/S:
+    the sums over the group count a pair once."""
+    blk = member_block(sp, b)
+    annot, w = pairs_and_weights(blk, blk.get("valid") if weigh_valid else None)
+    if sp.gathers(b["img"].shape[0]):
+        w = (torch.ones(annot.shape[0], device=annot.device) if w is None else w) / sp.size
+    return annot, w
 
 
 @dataclasses.dataclass
@@ -280,10 +302,10 @@ def make_train_step(
     def forward_loss(model: torch.nn.Module, b: dict[str, Tensor]) -> dict[str, Tensor]:
         if sp is None:
             out = model(b["img"], b["qvec"], b["qlens"])
+            annot, w = pairs_and_weights(b)
         else:  # the member's rows in; its batch block of everything out
             out = model(b["img"], b["qvec"], b["qlens"], spatial=sp)
-            b = member_block(sp, b)
-        annot, w = pairs_and_weights(b)
+            annot, w = member_pairs(sp, b)
         return compute_loss(out, annot, sample_weight=w)
 
     def clamped_global_pos(num_pos_local: Tensor) -> Tensor:
@@ -323,7 +345,8 @@ def make_train_step(
         batch = {key: batch[key] for key in train_batch_keys(cfg)}
         if sp is not None:
             bsz = batch["img"].shape[0]
-            if bsz % k == 0 and (bsz // k) % sp.size:  # before any exchange, on every rank
+            # The JAX halo step's refusal, before any exchange, on every rank.
+            if cfg.mdl_to_use == "retina" and bsz % k == 0 and sp.gathers(bsz // k):
                 raise reshard_batch_error(bsz // k, sp.size)
             batch["img"] = sp.rows(batch["img"])
         b = to_device(batch, dev)
@@ -378,7 +401,9 @@ def make_eval_step(
     per pair (B·Q rows), its loss weighted by ``valid`` times ``pair_valid``.
     Under ``mesh`` the metrics are this rank's rows and the loss is the
     global batch's (summed over the ranks); under a spatial mesh the rows
-    are this rank's block of its data index's slice (:func:`member_block`)."""
+    are this rank's block of its data index's slice (:func:`member_block`);
+    where the group gathered a batch that S does not divide, member 0 holds
+    every row and the others none (``SpatialCtx.counted``)."""
     dev = resolve_device(device)
     anchors = torch.as_tensor(anchors_cthw, dtype=torch.float32).to(dev)
     group = mesh.group if mesh is not None else None
@@ -393,15 +418,17 @@ def make_eval_step(
         b = to_device(batch, dev)
         if sp is None:
             out = model(b["img"], b["qvec"], b["qlens"])
+            annot, w = pairs_and_weights(b, b.get("valid"))
         else:
             out = model(b["img"], b["qvec"], b["qlens"], spatial=sp)
-            b = member_block(sp, b)
-        annot, w = pairs_and_weights(b, b.get("valid"))
+            annot, w = member_pairs(sp, b, weigh_valid=True)
         ev = eval_batch(out["att_out"], out["bbx_out"], anchors, annot, cfg.acc_iou_threshold)
         total = compute_loss(out, annot, sample_weight=w)["total"]
         if group is not None:
             total = all_reduce_sum(total, group)
         ev["loss"] = total.expand_as(ev["iou"])
+        if sp is not None and sp.gathers(b["img"].shape[0]) and sp.index:
+            ev = {key: v[:0] for key, v in ev.items()}  # member 0 answers for the gathered rows
         return ev
 
     return run

@@ -49,9 +49,11 @@ and ``vocab.json`` beside them. It keeps the JAX Learner's semantics:
   data index's shard, every member of a spatial group the same one, and
   the steps run the halo step (``parallel/train_step.py``). Validation
   gathers each rank's block of its shard, which in rank order is the
-  global batch. As in the JAX Learner the train step is built at first
-  use, so under ``spatial_mode='gspmd'`` a retina Learner validates and
-  only ``train_step`` raises.
+  global batch; a shard that the S members do not divide (one sample per
+  data index) is gathered within the group, and only its member 0 reports
+  its rows, so each pair counts once. As in the JAX Learner the train step
+  is built at first use, so under ``spatial_mode='gspmd'`` a retina
+  Learner validates and only ``train_step`` raises.
 
 The loss is read back from the device every ``cfg.log_every`` steps, one
 interval late, so the loop never waits on the device for it.
@@ -378,7 +380,8 @@ class Learner:
                     cases = None if cases is None else np.asarray(cases).reshape(-1)
                     ids = None if ids is None else np.asarray(ids).reshape(-1)
                 if self._spatial is not None:  # the rows of this member's metrics
-                    cases, ids, valid = (None if a is None else self._spatial.slice_batch(np.asarray(a).reshape(-1))
+                    n_img = len(batch["img"])
+                    cases, ids, valid = (None if a is None else self._spatial.counted(np.asarray(a).reshape(-1), n_img)
                                          for a in (cases, ids, valid))
                 if self.mesh is not None and self.mesh.world_size > 1:
                     ev, cases, ids, valid = self._gathered(ev, cases, ids, valid)
