@@ -1,0 +1,7 @@
+"""Share of the profiled serving stretch with no device operation running, in %."""
+
+from benchmark import metrics_common as common
+
+
+def read(rec: dict) -> float | None:
+    return common.idle_share(rec)

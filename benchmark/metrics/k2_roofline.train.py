@@ -1,0 +1,7 @@
+"""K2 (the fused loss's backward) against its roofline in the profiled steps, in %."""
+
+from benchmark import metrics_common as common
+
+
+def read(rec: dict) -> float | None:
+    return common.kernel_roofline(rec, "match_loss_grads", "k2")
